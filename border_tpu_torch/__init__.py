@@ -1,0 +1,35 @@
+"""border_tpu_torch — the PyTorch + CUDA port of :mod:`border_tpu` for
+NVIDIA Hopper.
+
+Same sub-package layout and names as the JAX package, so each module's
+counterpart is found under the same path:
+
+- :mod:`border_tpu_torch.core`   — spaces, batched Env/VecEnv, Agent contract.
+- :mod:`border_tpu_torch.envs`   — batched on-device Pong under the DQN pixel
+  wrapper.
+- :mod:`border_tpu_torch.replay` — frame-dedup replay (uniform "union"
+  sampling through the frame-gather kernel).
+- :mod:`border_tpu_torch.ops`    — hand-written CUDA kernels (``csrc/``),
+  built with ``nvcc`` at first use.
+- :mod:`border_tpu_torch.models` — the Atari CNN.
+- :mod:`border_tpu_torch.agents` — DQN.
+- :mod:`border_tpu_torch.train`  — TrainerConfig and the chunked Trainer.
+- :mod:`border_tpu_torch.record` — Record/Recorder telemetry.
+- :mod:`border_tpu_torch.convert` — carries weights and state over from numpy
+  arrays taken from the JAX package.
+
+It imports ``torch`` and numpy, never ``jax`` or ``border_tpu``.  Entry
+points (``Trainer``, ``VecEnv``, ``FrameReplayBuffer``, ``DQN.init``) run on
+the GPU unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from border_tpu_torch.core import spaces  # noqa: F401
+from border_tpu_torch.core.env import Environment, VecEnv  # noqa: F401
+from border_tpu_torch.errors import (  # noqa: F401
+    BorderTpuError,
+    ConfigError,
+    RecordKeyError,
+    RecordValueTypeError,
+)

@@ -1,0 +1,71 @@
+"""Observation/action space descriptions (≙ border_tpu/core/spaces.py).
+
+Static metadata objects; ``zero()`` mints a torch tensor used to size
+buffers and networks before the first step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+
+class Space:
+    shape: Tuple[int, ...]
+    dtype: Any
+
+    def zero(self, device=None) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=self.dtype, device=device)
+
+    def contains(self, x) -> bool:
+        raise NotImplementedError
+
+    @property
+    def flat_dim(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Discrete(Space):
+    """{0, 1, ..., n-1} with int32 representation."""
+
+    n: int
+    dtype: Any = torch.int32
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return ()
+
+    def contains(self, x) -> bool:
+        x = torch.as_tensor(x)
+        return bool(((x >= 0) & (x < self.n)).all())
+
+    @property
+    def flat_dim(self) -> int:
+        return self.n
+
+
+@dataclasses.dataclass(frozen=True)
+class Box(Space):
+    """Bounded (possibly unbounded) box."""
+
+    low: Any
+    high: Any
+    shape: Tuple[int, ...] = ()
+    dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if not self.shape:
+            s = np.shape(self.low) or np.shape(self.high)
+            object.__setattr__(self, "shape", tuple(s))
+
+    def contains(self, x) -> bool:
+        x = torch.as_tensor(x).double()
+        return bool(
+            tuple(x.shape) == tuple(self.shape)
+            and (x >= float(np.min(self.low)) - 1e-6).all()
+            and (x <= float(np.max(self.high)) + 1e-6).all()
+        )

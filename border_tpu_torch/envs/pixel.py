@@ -1,0 +1,158 @@
+"""Pixel-environment machinery: DQN-paper preprocessing on the device
+(≙ border_tpu/envs/pixel.py).
+
+- 4-frame action repeat that renders only the last two substeps and
+  max-pools them,
+- a 4-frame stacking ring kept in the env state, ``[N, 84, 84, 4]`` uint8
+  (channels last, as the JAX package's public observation),
+- sign reward clipping and episodic life in train mode,
+- ``truncated`` once ``max_frames`` emulator frames have run.
+
+The game is any batched :class:`PixelGame`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from border_tpu_torch.core import spaces
+from border_tpu_torch.core.env import Environment, where_state
+
+FRAME_H = FRAME_W = 84
+
+
+class PixelGame:
+    """Batched single-frame game dynamics consumed by :class:`PixelEnv`.
+
+    - ``init(gen, n, device) -> game_state``
+    - ``frame_step(gen, game_state, action) -> (game_state, reward, done)``
+      advances ONE emulator frame for every instance,
+    - ``render(game_state) -> [N, 84, 84] uint8``,
+    - ``lives(game_state) -> [N] int32``.
+    """
+
+    num_actions: int = 6
+    name: str = "PixelGame"
+    max_frames: int = 27_000
+
+    def init(self, gen: torch.Generator, n: int, device: torch.device):
+        raise NotImplementedError
+
+    def frame_step(self, gen, state, action):
+        raise NotImplementedError
+
+    def render(self, state) -> torch.Tensor:
+        raise NotImplementedError
+
+    def lives(self, state) -> torch.Tensor:
+        """Remaining lives (games without lives return 1)."""
+        first = getattr(state, dataclasses.fields(state)[0].name)
+        return torch.ones(first.shape[:1], dtype=torch.int32, device=first.device)
+
+
+@dataclasses.dataclass
+class PixelEnvState:
+    game: Any
+    frames: torch.Tensor  # [N, 84, 84, 4] uint8 stack ring (newest last)
+    frame_count: torch.Tensor  # [N] int32
+    t: torch.Tensor  # [N] int32 env steps (post frame-skip)
+    lives: torch.Tensor  # [N] int32 lives at the previous step
+    game_over: torch.Tensor  # [N] bool, the game's own terminal flag
+
+
+@dataclasses.dataclass(frozen=True)
+class PixelEnvParams:
+    frame_skip: int = 4
+    clip_reward: bool = True
+    episodic_life: bool = True
+    max_frames: int = 27_000
+
+
+class PixelEnv(Environment):
+    """Environment adapter: PixelGame → stacked-frame pixel MDP."""
+
+    def __init__(self, game: PixelGame, train: bool = True):
+        self.game = game
+        self.train = train
+        self.name = game.name
+
+    @property
+    def default_params(self) -> PixelEnvParams:
+        return PixelEnvParams(
+            clip_reward=self.train,
+            episodic_life=self.train,
+            max_frames=self.game.max_frames,
+        )
+
+    def observation_space(self, params) -> spaces.Box:
+        return spaces.Box(0, 255, (FRAME_H, FRAME_W, 4), torch.uint8)
+
+    def action_space(self, params) -> spaces.Discrete:
+        return spaces.Discrete(self.game.num_actions)
+
+    def reset_env(self, gen, n, params, device):
+        game = self.game.init(gen, n, device)
+        frame = self.game.render(game)
+        frames = frame[..., None].expand(-1, -1, -1, 4).contiguous()
+        zeros = torch.zeros((n,), dtype=torch.int32, device=device)
+        state = PixelEnvState(
+            game=game,
+            frames=frames,
+            frame_count=zeros,
+            t=zeros.clone(),
+            lives=self.game.lives(game),
+            game_over=torch.zeros((n,), dtype=torch.bool, device=device),
+        )
+        return frames, state
+
+    def step_env(self, gen, state, action, params):
+        # unrolled frame-skip: only the LAST TWO substeps are rendered, the
+        # max-pool consumes nothing else
+        game = state.game
+        n = state.frames.shape[0]
+        reward = torch.zeros((n,), dtype=torch.float32, device=state.frames.device)
+        done = torch.zeros((n,), dtype=torch.bool, device=state.frames.device)
+        rendered = []
+        for i in range(params.frame_skip):
+            game2, r, d = self.game.frame_step(gen, game, action)
+            # freeze dynamics once the point/episode ended mid-skip
+            game = where_state(done, game, game2)
+            reward = reward + torch.where(done, 0.0, r)
+            done = done | d
+            if i >= params.frame_skip - 2:
+                rendered.append(self.game.render(game))
+        frame = (
+            rendered[-1] if len(rendered) == 1
+            else torch.maximum(rendered[-1], rendered[-2])
+        )
+        frames = torch.cat([state.frames[..., 1:], frame[..., None]], dim=-1)
+        frame_count = state.frame_count + params.frame_skip
+        new_lives = self.game.lives(game)
+        life_lost = new_lives < state.lives
+        new_state = PixelEnvState(
+            game=game,
+            frames=frames,
+            frame_count=frame_count,
+            t=state.t + 1,
+            lives=new_lives,
+            game_over=done,
+        )
+        if params.clip_reward:
+            reward = torch.sign(reward)
+        terminated = done
+        if params.episodic_life:
+            terminated = done | life_lost
+        truncated = (frame_count >= params.max_frames) & ~terminated
+        return frames, new_state, reward, terminated, truncated, {}
+
+    def post_done_state(self, gen, state, obs, params):
+        """Full reset only when the game is really over (or time-capped);
+        after a mere life loss the game continues in place."""
+        obs_re, st_re = self.reset_env(gen, obs.shape[0], params, obs.device)
+        really_over = state.game_over | (state.frame_count >= params.max_frames)
+        st = where_state(really_over, st_re, state)
+        new_obs = where_state(really_over, obs_re, obs)
+        return new_obs, st

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels for the framework's hot memory ops
+(≙ border_tpu/ops).
+
+Every kernel has a plain PyTorch version beside it in the same module: the
+wrapper runs it for CPU tensors (the tests), and ``chip_smoke.py`` holds the
+kernel against it on the card.
+"""
+
+from border_tpu_torch.ops.frame_gather import gather_frames, gather_frames_ref
+
+__all__ = ["gather_frames", "gather_frames_ref"]

@@ -1,0 +1,5 @@
+"""Training orchestration (≙ border_tpu/train).  Ported so far: the
+configuration and the synchronous chunked Trainer."""
+
+from border_tpu_torch.train.config import TrainerConfig  # noqa: F401
+from border_tpu_torch.train.trainer import Trainer, TrainResult  # noqa: F401

@@ -1,0 +1,306 @@
+"""Synchronous chunked trainer (≙ border_tpu/train/trainer.py).
+
+Each chunk runs
+
+    K env steps   (num_envs vectorised instances: act → step → push)
+    M updates     (sample from device replay → gradient step)
+
+with ``M = K·num_envs/opt_interval · n_updates_per_opt``, the reference's
+update:sample ratio.  The JAX trainer compiles a chunk into one XLA program
+of two ``lax.scan``s; here the two are Python loops over eager PyTorch ops
+that queue on the card without waiting for it.  The env-step counters,
+the write cursor, the draw range and the update count are host ints that
+advance by fixed amounts, and the chunk's metrics are summed on the device,
+so a chunk costs one device→host sync, at its end.
+
+The Python shell around the chunks handles the cadences: warmup on buffer
+fill, record flushing and compute-cost records.  Evaluation, model saving
+and checkpoints port with ROADMAP A.7; until then the trainer raises if
+they are asked for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from border_tpu_torch.agents.common import param_stats
+from border_tpu_torch.core.agent import Agent
+from border_tpu_torch.core.env import Environment, VecEnv
+from border_tpu_torch.errors import ConfigError
+from border_tpu_torch.record.record import Record
+from border_tpu_torch.record.recorder import NullRecorder, Recorder
+from border_tpu_torch.train.config import TrainerConfig
+from border_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """Final states + throughput stats."""
+
+    agent_state: Any
+    buffer_state: Any
+    env_steps: int
+    opt_steps: int
+    duration_sec: float
+    samples_per_sec: float
+    opt_per_sec: float
+    best_score: float
+    eval_history: List[Tuple[int, float]]
+
+
+class Trainer:
+    def __init__(
+        self,
+        env: Environment,
+        agent: Agent,
+        buffer,
+        config: TrainerConfig = TrainerConfig(),
+        recorder: Optional[Recorder] = None,
+        evaluator=None,
+        checkpoint_manager=None,
+        checkpoint_interval: int = 0,
+        eval_callback=None,
+        device: DeviceLike = None,
+    ):
+        if (evaluator is not None or checkpoint_manager is not None
+                or checkpoint_interval or eval_callback is not None):
+            raise ConfigError(
+                "evaluation and checkpoints port with ROADMAP A.7; pass "
+                "evaluator/checkpoint_manager/eval_callback as None"
+            )
+        c = config
+        if c.save_interval:
+            raise ConfigError("model saving ports with ROADMAP A.7; set "
+                              "save_interval=0")
+        if c.prefetch_sample:
+            raise ConfigError("prefetch_sample ports with ROADMAP A.9")
+        if c.updates_per_sample_batch > 1:
+            raise ConfigError("updates_per_sample_batch > 1 ports with "
+                              "ROADMAP A.9")
+        self.env = env
+        self.agent = agent
+        self.buffer = buffer
+        self.config = config
+        self.recorder = recorder or NullRecorder()
+        self.device = resolve_device(device)
+        if torch.device(buffer.device) != self.device:
+            raise ValueError(
+                f"buffer on {buffer.device}, trainer on {self.device}"
+            )
+        self.vec = VecEnv(env, c.num_envs, device=self.device)
+
+        transitions_per_chunk = c.steps_per_chunk * c.num_envs
+        self.updates_per_chunk = max(
+            1, round(transitions_per_chunk / c.opt_interval)
+        ) * c.n_updates_per_opt
+        self._check_nstep_clip(agent, buffer)
+        self._check_nstep_gamma(agent, buffer)
+
+    @staticmethod
+    def _check_nstep_clip(agent, buffer) -> None:
+        """clip_reward clips per-transition rewards; an n-step buffer's
+        sampled reward is the accumulated return, so clipping it would
+        compute another target than canonical n-step DQN."""
+        cfg = getattr(agent, "config", None)
+        if (
+            getattr(cfg, "clip_reward", None) is not None
+            and getattr(buffer, "n_step", 1) > 1
+        ):
+            raise ConfigError(
+                "clip_reward with an n-step (n>1) replay buffer would clip "
+                "the accumulated n-step return, not per-step rewards; "
+                "clip rewards env-side instead"
+            )
+
+    @staticmethod
+    def _check_nstep_gamma(agent, buffer) -> None:
+        """With n_step>1 the buffer's gamma drives both the n-step reward
+        sum and ``batch.discount``: the agent's gamma must agree."""
+        cfg = getattr(agent, "config", None)
+        agent_gamma = getattr(cfg, "gamma", None)
+        if (
+            agent_gamma is not None
+            and getattr(buffer, "n_step", 1) > 1
+            and abs(float(getattr(buffer, "gamma", agent_gamma))
+                    - float(agent_gamma)) > 1e-9
+        ):
+            raise ConfigError(
+                f"agent gamma ({agent_gamma}) != n-step buffer gamma "
+                f"({buffer.gamma}); pass the same gamma to both"
+            )
+
+    # ------------------------------------------------------------------
+    # chunk
+    # ------------------------------------------------------------------
+    def _env_scan(self, agent_state, vec_state, buf_state,
+                  gen: torch.Generator, explore: bool):
+        """K env steps: act → step → push.  Returns the states and the
+        device sums of the finished episodes' returns and of their count."""
+        ep_ret = torch.zeros((), device=self.device)
+        ep_cnt = torch.zeros((), device=self.device)
+        for _ in range(self.config.steps_per_chunk):
+            if explore:
+                action = self.agent.select_action(agent_state, vec_state.obs, gen)
+            else:
+                action = self.agent.select_action_eval(agent_state, vec_state.obs, gen)
+            prev_obs = vec_state.obs
+            prev_ep_len = vec_state.episode_length
+            ts, vec_state = self.vec.step(vec_state, action)
+            buf_state = self.buffer.process_step(
+                buf_state, prev_obs, action, ts, prev_ep_len
+            )
+            agent_state = self.agent.on_env_step(agent_state, self.config.num_envs)
+            done_f = ts.done.float()
+            ep_ret += (done_f * vec_state.last_return).sum()
+            ep_cnt += done_f.sum()
+        return agent_state, vec_state, buf_state, ep_ret, ep_cnt
+
+    def _update_scan(self, agent_state, buf_state, gen: torch.Generator):
+        """M sequential gradient steps: sample → update.  Returns the
+        metrics' means, tensors still on the device."""
+        sums: Dict[str, Any] = {}
+        for _ in range(self.updates_per_chunk):
+            batch = self.buffer.sample(
+                buf_state, gen, self.config.batch_size, n_opts=agent_state.n_opts
+            )
+            agent_state, metrics, td_err = self.agent.update(agent_state, batch, gen)
+            buf_state = self.buffer.update_priority(
+                buf_state, batch.ix_sample, td_err
+            )
+            for k, v in metrics.items():
+                sums[k] = sums[k] + v if k in sums else v
+        means = {k: v / self.updates_per_chunk for k, v in sums.items()}
+        return agent_state, buf_state, means
+
+    def _chunk(self, agent_state, vec_state, buf_state, gen: torch.Generator,
+               do_update: bool):
+        agent_state, vec_state, buf_state, ep_ret, ep_cnt = self._env_scan(
+            agent_state, vec_state, buf_state, gen, explore=True
+        )
+        metrics = {}
+        if do_update:
+            agent_state, buf_state, metrics = self._update_scan(
+                agent_state, buf_state, gen
+            )
+        return agent_state, vec_state, buf_state, metrics, ep_ret, ep_cnt
+
+    # ------------------------------------------------------------------
+    # state construction
+    # ------------------------------------------------------------------
+    def init_states(self, seed_agent, seed_env):
+        agent_state = self.agent.init(
+            seed_agent, self.vec.observation_space, self.vec.action_space,
+            device=self.device,
+        )
+        vec_state = self.vec.reset(seed_env)
+        buffer_state = self.buffer.init()
+        return agent_state, vec_state, buffer_state
+
+    # ------------------------------------------------------------------
+    # orchestration shell (≙ Trainer::train, trainer.rs:267-327)
+    # ------------------------------------------------------------------
+    def train(
+        self,
+        seed: Optional[int] = None,
+        agent_state: Optional[Any] = None,
+        buffer_state: Optional[Any] = None,
+    ) -> TrainResult:
+        """Run the training loop.  ``seed`` (default ``config.seed``) seeds
+        the agent's initial parameters, the envs, and the loop's action and
+        replay draws, each from its own generator."""
+        c = self.config
+        seed = c.seed if seed is None else seed
+        init_agent, vec_state, init_buffer = self.init_states(seed, seed + 1)
+        if agent_state is None:
+            agent_state = init_agent
+        if buffer_state is None:
+            buffer_state = init_buffer
+        gen = torch.Generator(device=self.device).manual_seed(seed + 2)
+
+        env_steps = opt_steps = 0
+        next_flush = c.flush_record_interval
+        next_cost = c.record_compute_cost_interval
+        next_agent_info = 0
+        cost_time, cost_updates, cost_transitions = 0.0, 0, 0
+        transitions_per_chunk = c.steps_per_chunk * c.num_envs
+        t0 = time.perf_counter()
+
+        while opt_steps < c.max_opts:
+            warmed = self.buffer.fill(buffer_state) >= max(
+                c.warmup_period, c.batch_size
+            )
+            t_chunk = time.perf_counter()
+            agent_state, vec_state, buffer_state, metrics, ep_ret, ep_cnt = (
+                self._chunk(agent_state, vec_state, buffer_state, gen, warmed)
+            )
+            # the chunk's one device→host sync: every device scalar at once
+            dev_keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+            vals = torch.stack(
+                [ep_ret, ep_cnt] + [metrics[k].float() for k in dev_keys]
+            ).tolist()
+            dt = time.perf_counter() - t_chunk
+
+            env_steps += transitions_per_chunk
+            if warmed:
+                opt_steps = agent_state.n_opts
+
+            # -- telemetry (≙ trainer.rs:305-320 record/store/flush) -------
+            rec = Record({k: float(v) for k, v in metrics.items()
+                          if not torch.is_tensor(v)})
+            rec.merge_inplace(Record(dict(zip(dev_keys, vals[2:]))))
+            if vals[1] > 0:
+                rec["episode_return_train"] = vals[0] / vals[1]
+            rec["env_steps"] = float(env_steps)
+            rec["samples_per_sec"] = transitions_per_chunk / dt
+            if warmed:
+                rec["opt_steps_per_sec"] = self.updates_per_chunk / dt
+            self.recorder.store(rec)
+
+            # -- compute-cost records every record_compute_cost_interval ---
+            cost_time += dt
+            cost_transitions += transitions_per_chunk
+            if warmed:
+                cost_updates += self.updates_per_chunk
+            if c.record_compute_cost_interval and opt_steps >= next_cost:
+                cost = Record({
+                    "average_sample_time": 1e3 * cost_time / max(cost_transitions, 1)
+                })
+                if cost_updates:
+                    cost["average_opt_time"] = 1e3 * cost_time / cost_updates
+                self.recorder.write_at(cost, opt_steps)
+                cost_time, cost_updates, cost_transitions = 0.0, 0, 0
+                next_cost += c.record_compute_cost_interval
+
+            if opt_steps >= next_flush:
+                self.recorder.flush(opt_steps)
+                next_flush += c.flush_record_interval
+
+            # -- periodic per-tensor param stats ---------------------------
+            if (c.record_agent_info_interval and warmed
+                    and opt_steps >= next_agent_info):
+                stats = param_stats(
+                    self.agent.policy_params(agent_state), prefix="param/"
+                )
+                self.recorder.write_at(
+                    Record(dict(zip(stats, torch.stack(list(stats.values())).tolist()))),
+                    opt_steps,
+                )
+                next_agent_info = opt_steps + c.record_agent_info_interval
+
+        duration = time.perf_counter() - t0
+        self.recorder.flush(opt_steps)
+        return TrainResult(
+            agent_state=agent_state,
+            buffer_state=buffer_state,
+            env_steps=env_steps,
+            opt_steps=opt_steps,
+            duration_sec=duration,
+            samples_per_sec=env_steps / duration,
+            opt_per_sec=opt_steps / duration,
+            best_score=-float("inf"),
+            eval_history=[],
+        )

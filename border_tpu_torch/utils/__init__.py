@@ -1,0 +1,3 @@
+"""Utilities of the port."""
+
+from border_tpu_torch.utils.device import as_generator, resolve_device  # noqa: F401
