@@ -7,14 +7,19 @@ counterpart is found under the same path:
 - :mod:`border_tpu_torch.core`   — spaces, batched Env/VecEnv, Agent contract.
 - :mod:`border_tpu_torch.envs`   — batched on-device Pong under the DQN pixel
   wrapper.
-- :mod:`border_tpu_torch.replay` — frame-dedup replay (uniform "union"
-  sampling through the frame-gather kernel).
+- :mod:`border_tpu_torch.replay` — frame-dedup replay (uniform or
+  prioritized; union, separate and slice sampling; n-step), every frame
+  read through the frame-gather kernel; the device sum tree.
 - :mod:`border_tpu_torch.ops`    — hand-written CUDA kernels (``csrc/``),
   built with ``nvcc`` at first use.
 - :mod:`border_tpu_torch.models` — the Atari CNN.
 - :mod:`border_tpu_torch.agents` — DQN.
-- :mod:`border_tpu_torch.train`  — TrainerConfig and the chunked Trainer.
-- :mod:`border_tpu_torch.record` — Record/Recorder telemetry.
+- :mod:`border_tpu_torch.train`  — TrainerConfig, the chunked Trainer
+  (evaluation, model saves, checkpoints, resume) and the Evaluator.
+- :mod:`border_tpu_torch.record` — Record/Recorder telemetry, TensorBoard
+  event files.
+- :mod:`border_tpu_torch.utils`  — device resolution, full-state
+  CheckpointManager.
 - :mod:`border_tpu_torch.convert` — carries weights and state over from numpy
   arrays taken from the JAX package.
 

@@ -11,13 +11,15 @@ returns the port's counterpart on ``device``.  The module imports neither
   order (``c·49 + h·7 + w``).
 - ``PongState`` / ``PixelEnvState`` / ``VecEnvState`` → the port's env state.
 - ``FrameReplayState`` → the port's buffer state: the ``(R, 128)`` tile
-  padding of each stored frame is stripped back to ``H × W``.
+  padding of each stored frame is stripped back to ``H × W``; the slice
+  mode's mirror slots stay on the frames only; a PER state's ``tree``
+  becomes a ``SumTreeState``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +30,7 @@ from border_tpu_torch.envs.pixel import PixelEnvState
 from border_tpu_torch.envs.pong import PongState
 from border_tpu_torch.models.cnn import AtariCNN
 from border_tpu_torch.replay.frame_buffer import FrameReplayState
+from border_tpu_torch.replay.sum_tree import SumTreeState
 from border_tpu_torch.utils.device import DeviceLike, as_generator, resolve_device
 
 _CNN_LAYERS = (("Conv_0", "conv0"), ("Conv_1", "conv1"), ("Conv_2", "conv2"),
@@ -158,22 +161,36 @@ def vec_env_state(js, seed_or_gen, device: DeviceLike = "cpu") -> VecEnvState:
     )
 
 
+def sum_tree_state(js, device: DeviceLike = "cpu") -> SumTreeState:
+    """JAX ``SumTreeState`` → the port's (same heap layout)."""
+    return SumTreeState(
+        sum_tree=_t(js.sum_tree, device, torch.float32),
+        min_tree=_t(js.min_tree, device, torch.float32),
+        max_priority=_t(js.max_priority, device, torch.float32),
+    )
+
+
 def frame_replay_state(js, frame_hw: Tuple[int, int] = (84, 84),
-                       device: DeviceLike = "cpu") -> FrameReplayState:
-    """JAX ``FrameReplayState`` (frames ``[N, cap, R, 128]``) → the port's
-    unpadded ``[N, cap, H, W]`` ring."""
-    if getattr(js, "tree", None) is not None:
-        raise ValueError("prioritized replay state ports with ROADMAP A.8")
+                       device: DeviceLike = "cpu",
+                       capacity: Optional[int] = None) -> FrameReplayState:
+    """JAX ``FrameReplayState`` (frames ``[N, slots, R, 128]``) → the port's
+    unpadded ``[N, slots, H, W]`` ring.  In slice mode ``slots`` is the
+    capacity plus the mirror slots, and the JAX state pads every other
+    array to ``slots`` too; the port keeps those at ``capacity``, which the
+    caller then passes."""
     h, w = frame_hw
     f = np.asarray(js.frames)
-    n, cap = f.shape[:2]
-    frames = f.reshape(n, cap, -1)[:, :, : h * w].reshape(n, cap, h, w)
+    n, slots = f.shape[:2]
+    frames = f.reshape(n, slots, -1)[:, :, : h * w].reshape(n, slots, h, w)
+    tree = getattr(js, "tree", None)
+    cap = slots if capacity is None else capacity
     return FrameReplayState(
         frames=_t(frames, device),
-        act=_t(js.act, device, torch.int32),
-        reward=_t(js.reward, device, torch.float32),
-        terminated=_t(js.terminated, device, torch.bool),
-        truncated=_t(js.truncated, device, torch.bool),
-        age=_t(js.age, device, torch.int32),
+        act=_t(js.act, device, torch.int32)[:, :cap],
+        reward=_t(js.reward, device, torch.float32)[:, :cap],
+        terminated=_t(js.terminated, device, torch.bool)[:, :cap],
+        truncated=_t(js.truncated, device, torch.bool)[:, :cap],
+        age=_t(js.age, device, torch.int32)[:, :cap],
         total=int(np.asarray(js.total)),
+        tree=None if tree is None else sum_tree_state(tree, device),
     )

@@ -8,15 +8,48 @@ the JAX package: ``state, metrics, td = agent.update(state, batch)``.
 
 ``update`` returns ``(state, metrics, td_errors)``; ``td_errors`` (or None)
 feeds prioritized-replay priority updates.
+
+``save``/``load`` keep the JAX package's on-disk form: one flat ``.npz`` of
+numpy arrays, readable without torch.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from border_tpu_torch.utils.checkpoint import pack_state, unpack_state
+
 AgentState = Any
+
+
+def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """Nested dicts of tensors and scalars → ``{"a/b/c": array}``.  bf16 has
+    no numpy type and is stored as float32."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}/{k}" if prefix else str(k), out)
+    elif torch.is_tensor(tree):
+        t = tree.detach().cpu()
+        out[prefix] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    elif tree is not None:
+        out[prefix] = np.asarray(tree)
+
+
+def _unflatten(arrays) -> Dict[Any, Any]:
+    """The inverse of :func:`_flatten`; all-digit path parts (an
+    optimizer's parameter numbers) become ints again."""
+    tree: Dict[Any, Any] = {}
+    for name in arrays.files:
+        *parents, leaf = [int(k) if k.isdigit() else k for k in name.split("/")]
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = torch.from_numpy(arrays[name])
+    return tree
 
 
 class Agent:
@@ -50,3 +83,18 @@ class Agent:
     def policy_params(self, state: AgentState) -> Any:
         """The parameters action selection needs."""
         raise NotImplementedError
+
+    # -- checkpointing (≙ Agent::save_params/load_params) ------------------
+    def save(self, state: AgentState, path: str) -> None:
+        """Save the whole agent state (networks, optimizer moments,
+        counters) as ``<path>/<name>.npz``."""
+        flat: Dict[str, np.ndarray] = {}
+        _flatten(pack_state(state), "", flat)
+        os.makedirs(path, exist_ok=True)
+        np.savez(os.path.join(path, f"{self.name}.npz"), **flat)
+
+    def load(self, state: AgentState, path: str) -> AgentState:
+        """Load into an existing (template) state, casting each array back
+        to the template's dtype; returns the state."""
+        with np.load(os.path.join(path, f"{self.name}.npz")) as arrays:
+            return unpack_state(state, _unflatten(arrays))

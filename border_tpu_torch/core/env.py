@@ -51,6 +51,14 @@ class Timestep:
         return self.terminated | self.truncated
 
 
+def index_seed(base_seed: int, index: int) -> int:
+    """The seed of stream ``index`` under ``base_seed``:
+    ``base_seed · 1_000_003 + index`` (the port's stand-in for
+    ``jax.random.fold_in``).  The same pair gives the same seed on every
+    call; indices below 1_000_003 never collide under one base seed."""
+    return int(base_seed) * 1_000_003 + int(index)
+
+
 def where_state(mask: torch.Tensor, a: Any, b: Any) -> Any:
     """Per-instance select over a (nested) dataclass of ``[N, ...]``
     tensors: ``a`` where ``mask`` [N] is true, else ``b``."""
@@ -149,6 +157,12 @@ class VecEnv:
             episode_length=zeros_i, last_return=zeros_f.clone(),
             last_length=zeros_i.clone(), gen=gen,
         )
+
+    def reset_with_index(self, base_seed: int, index: int) -> VecEnvState:
+        """Deterministic per-index reset for evaluation
+        (≙ Env::reset_with_index, env.rs:162-180): a fresh generator seeded
+        with :func:`index_seed`."""
+        return self.reset(index_seed(base_seed, index))
 
     def step(
         self, state: VecEnvState, action: torch.Tensor

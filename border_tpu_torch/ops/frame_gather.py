@@ -2,8 +2,9 @@
 
 ``gather_frames(frames [M, H, W], idx [B, S] int32) -> [B, S, H, W]`` with
 ``out[b, s] = frames[idx[b, s]]``: whole frames, any dtype.  It is the sample
-op of :class:`border_tpu_torch.replay.FrameReplayBuffer`, one launch per
-sampled batch.
+op of :class:`border_tpu_torch.replay.FrameReplayBuffer`: one launch per
+sampled batch in union and slice mode (``S = stack + 1``), two in separate
+mode and with ``n_step > 1`` (``S = stack``).
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/frame_gather.cu`` (built with ``nvcc`` at first use, bound with

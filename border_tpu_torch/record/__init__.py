@@ -6,4 +6,5 @@ from border_tpu_torch.record.recorder import (  # noqa: F401
     BufferedRecorder,
     NullRecorder,
     Recorder,
+    TensorboardRecorder,
 )

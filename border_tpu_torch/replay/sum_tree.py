@@ -1,0 +1,153 @@
+"""Vectorised device-side sum tree for prioritized experience replay
+(≙ border_tpu/replay/sum_tree.py).
+
+Layout: ``tree[2 * capacity]`` float32 (capacity is a power of two).
+``tree[1]`` is the root (total mass), leaves live at ``tree[capacity + i]``,
+``tree[0]`` is unused.  Stored leaf values are the already-exponentiated
+priorities ``p = (|td| + eps)^alpha``.  A min tree of the same shape gives
+the "normalize over All" importance weights their maximum.
+
+Batched updates and a batched prefix-sum descent: each is ``depth`` =
+log2(capacity) rounds of small gathers and scatters on the device, with no
+device→host sync.  ``update`` writes the trees in place and returns the
+same state, as the port's ring does.
+
+Two things differ from the JAX tree, both where its result is unspecified
+or faulty:
+
+- **duplicate indices with different priorities** in one ``update``: JAX
+  leaves the winner of conflicting ``.at[].set`` writes unspecified, and
+  ``index_put_`` on CUDA is order-dependent.  Here the leaf takes the
+  **maximum** of the priorities written to it (``scatter_reduce_`` with
+  ``amax``), on every device;
+- **the descent never enters a right subtree whose sum is zero.**  A mass
+  point can reach the root's total: ``(B − 1) + u`` rounds up to ``B`` in
+  float32 for the top stratum once ``u ≥ 1 − 2^-16`` at ``B`` = 512 (one
+  batch in 65,536), and the JAX descent then walks right at
+  every level and returns the last leaf, dead unless the ring is full
+  (rounding below the root can do the same inside a subtree).  With the
+  extra test the sampled leaf always has mass while the root has;
+  wherever the JAX descent lands on a live leaf, this one lands on the
+  same leaf.  Both children come from one paired read, so the test costs
+  two elementwise launches a level and no further gather.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from border_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+@dataclasses.dataclass
+class SumTreeState:
+    sum_tree: torch.Tensor  # [2 * cap] f32, internal nodes are subtree sums
+    min_tree: torch.Tensor  # [2 * cap] f32, internal nodes are subtree mins
+    # running max of raw (exponentiated) priorities; a device scalar, since
+    # reading it on the host would cost a sync per push
+    max_priority: torch.Tensor
+
+
+class SumTree:
+    """Static-config companion of :class:`SumTreeState`."""
+
+    def __init__(self, capacity: int, device: DeviceLike = None):
+        self.capacity = _next_pow2(capacity)
+        self.depth = self.capacity.bit_length() - 1  # log2(capacity)
+        self.device = resolve_device(device)
+        self._shifts = torch.arange(1, self.depth + 1, device=self.device)[:, None]
+
+    def init(self) -> SumTreeState:
+        return SumTreeState(
+            sum_tree=torch.zeros(2 * self.capacity, dtype=torch.float32,
+                                 device=self.device),
+            min_tree=torch.full((2 * self.capacity,), float("inf"),
+                                dtype=torch.float32, device=self.device),
+            max_priority=torch.ones((), dtype=torch.float32, device=self.device),
+        )
+
+    @torch.no_grad()
+    def update(self, state: SumTreeState, indices: torch.Tensor,
+               priorities: torch.Tensor) -> SumTreeState:
+        """Batched leaf write + bottom-up recompute, in place.
+
+        Each level recomputes the parents from both children (``left +
+        right``, in that order, as the JAX tree does), so duplicate indices
+        write the same value there.  At the leaves a duplicated index keeps
+        the maximum of its priorities (see the module docstring).
+
+        A zero priority marks a DEAD leaf (FrameReplayBuffer's residency
+        maintenance): it gets no sampling mass and enters the min tree as
+        +inf, like an unwritten leaf.  Live priorities are always > 0.
+        """
+        priorities = priorities.float()
+        leaves = indices.long() + self.capacity
+        sum_t, min_t = state.sum_tree, state.min_tree
+        sum_t.scatter_reduce_(0, leaves, priorities, "amax", include_self=False)
+        p = sum_t[leaves]
+        min_t[leaves] = torch.where(p > 0, p, float("inf"))
+        parents = leaves[None, :] >> self._shifts  # [depth, K]
+        lefts = parents * 2
+        rights = lefts + 1
+        for par, left, right in zip(parents, lefts, rights):
+            sum_t[par] = sum_t[left] + sum_t[right]
+            min_t[par] = torch.minimum(min_t[left], min_t[right])
+        state.max_priority = torch.maximum(state.max_priority, priorities.max())
+        return state
+
+    def total(self, state: SumTreeState) -> torch.Tensor:
+        return state.sum_tree[1]
+
+    def min_priority(self, state: SumTreeState) -> torch.Tensor:
+        return state.min_tree[1]
+
+    @torch.no_grad()
+    def sample(self, state: SumTreeState, batch_size: int,
+               gen: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Stratified prefix-sum inversion (≙ sum_tree.rs sample/get): one
+        mass point per stratum of total/batch_size, then all lanes descend
+        one level per round.  ``u`` [batch_size] injects the uniform draws
+        (float32 in [0, 1)); otherwise they come from ``gen``.  Returns leaf
+        indices, int64."""
+        sum_t = state.sum_tree
+        if u is None:
+            u = torch.rand((batch_size,), generator=gen, dtype=torch.float32,
+                           device=sum_t.device)
+        mass = (torch.arange(batch_size, dtype=torch.float32,
+                             device=sum_t.device) + u) * (sum_t[1] / batch_size)
+        nodes = torch.ones((batch_size,), dtype=torch.int64, device=sum_t.device)
+        pairs = sum_t.view(self.capacity, 2)  # node n's children: pairs[n]
+        for _ in range(self.depth):
+            left_sum, right_sum = pairs[nodes].unbind(1)
+            go_right = (mass >= left_sum) & (right_sum > 0)
+            nodes = 2 * nodes + go_right
+            mass = torch.where(go_right, mass - left_sum, mass)
+        return nodes - self.capacity
+
+    @torch.no_grad()
+    def weights(self, state: SumTreeState, indices: torch.Tensor,
+                n_valid: int, beta: float,
+                normalize_all: bool = True) -> torch.Tensor:
+        """Importance weights ``(N·P(i))^{-β}``, normalized by the max weight
+        over All (via the min tree) or over the Batch
+        (≙ sum_tree.rs:116-156)."""
+        total = self.total(state).clamp_min(1e-12)
+        p = state.sum_tree[indices.long() + self.capacity] / total
+        w = (float(n_valid) * p.clamp_min(1e-12)) ** (-beta)
+        if normalize_all:
+            p_min = self.min_priority(state).clamp_min(1e-12) / total
+            w_max = (float(n_valid) * p_min) ** (-beta)
+        else:
+            w_max = w.max()
+        return w / w_max.clamp_min(1e-12)

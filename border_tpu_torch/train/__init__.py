@@ -1,5 +1,6 @@
 """Training orchestration (≙ border_tpu/train).  Ported so far: the
-configuration and the synchronous chunked Trainer."""
+configuration, the synchronous chunked Trainer and the Evaluator."""
 
 from border_tpu_torch.train.config import TrainerConfig  # noqa: F401
+from border_tpu_torch.train.evaluator import Evaluator  # noqa: F401
 from border_tpu_torch.train.trainer import Trainer, TrainResult  # noqa: F401

@@ -9,11 +9,10 @@ loads in the other.  The update:sample ratio knobs carry over exactly:
 ``num_envs`` is the vectorised env axis and ``steps_per_chunk`` the env
 steps run between two rounds of updates.
 
-The JAX-only scheduling fields have no effect in the port and are kept so
-configs round-trip: ``update_scan_unroll`` is ignored (there is no scan to
-unroll), and ``prefetch_sample=True`` or ``updates_per_sample_batch > 1``
-make the :class:`~border_tpu_torch.train.Trainer` raise ``ConfigError``
-until ROADMAP A.9 ports them.
+``update_scan_unroll`` has no effect in the port (there is no scan to
+unroll) and is kept so configs round-trip.  ``prefetch_sample`` and
+``updates_per_sample_batch`` order the uniform update loop's samples as in
+the JAX trainer (``Trainer._update_scan``).
 """
 
 from __future__ import annotations
@@ -39,9 +38,10 @@ class TrainerConfig:
     # -- vectorisation / chunking ------------------------------------------
     num_envs: int = 128  # vectorized env axis (≙ N actors)
     steps_per_chunk: int = 64  # env steps per chunk
-    # JAX-only scheduling knobs, kept for the YAML round-trip (see above)
+    # uniform update loop: sample i+1 started before update i / one sample
+    # of batch_size·u cut into u sub-batches
     prefetch_sample: bool = False
-    update_scan_unroll: int = 1
+    update_scan_unroll: int = 1  # JAX-only, kept for the YAML round-trip
     updates_per_sample_batch: int = 1
     # -- misc --------------------------------------------------------------
     seed: int = 0

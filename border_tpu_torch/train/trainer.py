@@ -14,9 +14,9 @@ advance by fixed amounts, and the chunk's metrics are summed on the device,
 so a chunk costs one device→host sync, at its end.
 
 The Python shell around the chunks handles the cadences: warmup on buffer
-fill, record flushing and compute-cost records.  Evaluation, model saving
-and checkpoints port with ROADMAP A.7; until then the trainer raises if
-they are asked for.
+fill, periodic evaluation with best-model selection, model saves, record
+flushing, compute-cost records and full-state checkpoints, all at chunk
+granularity.
 """
 
 from __future__ import annotations
@@ -34,7 +34,32 @@ from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.record.record import Record
 from border_tpu_torch.record.recorder import NullRecorder, Recorder
 from border_tpu_torch.train.config import TrainerConfig
+from border_tpu_torch.train.evaluator import Evaluator
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def _reconcile_next_cadence(stored: int, interval: int, opt_steps: int):
+    """Reconcile a restored cadence counter with the CURRENT config.
+
+    The stored value only means something while the feature stays enabled:
+    interval=0 now means disabled (None) whatever the history; enabled now
+    but disabled or unknown before (stored < 0) schedules the next firing
+    one interval from the current position.  A stale counter never falls
+    behind ``opt_steps`` (it would fire every iteration)."""
+    if not interval:
+        return None
+    if stored < 0:
+        return opt_steps + interval
+    return max(stored, opt_steps - opt_steps % interval)
+
+
+def _slice_batch(batch, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of every field of a sampled batch."""
+    return type(batch)(**{
+        f.name: None if getattr(batch, f.name) is None
+        else getattr(batch, f.name)[lo:hi]
+        for f in dataclasses.fields(batch)
+    })
 
 
 @dataclasses.dataclass
@@ -60,32 +85,26 @@ class Trainer:
         buffer,
         config: TrainerConfig = TrainerConfig(),
         recorder: Optional[Recorder] = None,
-        evaluator=None,
+        evaluator: Optional[Evaluator] = None,
         checkpoint_manager=None,
         checkpoint_interval: int = 0,
         eval_callback=None,
         device: DeviceLike = None,
     ):
-        if (evaluator is not None or checkpoint_manager is not None
-                or checkpoint_interval or eval_callback is not None):
-            raise ConfigError(
-                "evaluation and checkpoints port with ROADMAP A.7; pass "
-                "evaluator/checkpoint_manager/eval_callback as None"
-            )
         c = config
-        if c.save_interval:
-            raise ConfigError("model saving ports with ROADMAP A.7; set "
-                              "save_interval=0")
-        if c.prefetch_sample:
-            raise ConfigError("prefetch_sample ports with ROADMAP A.9")
-        if c.updates_per_sample_batch > 1:
-            raise ConfigError("updates_per_sample_batch > 1 ports with "
-                              "ROADMAP A.9")
         self.env = env
         self.agent = agent
         self.buffer = buffer
         self.config = config
         self.recorder = recorder or NullRecorder()
+        self.evaluator = evaluator
+        # full-training-state snapshots every checkpoint_interval optimizer
+        # steps; 0 disables
+        self.checkpoint_manager = checkpoint_manager
+        self.checkpoint_interval = checkpoint_interval
+        # called after every evaluation with (opt_steps, env_steps, score,
+        # best_score)
+        self.eval_callback = eval_callback
         self.device = resolve_device(device)
         if torch.device(buffer.device) != self.device:
             raise ValueError(
@@ -97,8 +116,29 @@ class Trainer:
         self.updates_per_chunk = max(
             1, round(transitions_per_chunk / c.opt_interval)
         ) * c.n_updates_per_opt
+        self._check_sample_batches(buffer)
         self._check_nstep_clip(agent, buffer)
         self._check_nstep_gamma(agent, buffer)
+
+    def _check_sample_batches(self, buffer) -> None:
+        """``updates_per_sample_batch`` cuts one big uniform sample into
+        whole sub-batches: it must divide the chunk's update count, and in
+        slice mode each sub-batch must hold whole groups."""
+        c = self.config
+        ups = c.updates_per_sample_batch
+        if ups <= 1 or buffer.per is not None:
+            return
+        if self.updates_per_chunk % ups:
+            raise ConfigError(
+                f"updates_per_sample_batch ({ups}) must divide the "
+                f"chunk's update count ({self.updates_per_chunk})"
+            )
+        if (getattr(buffer, "sample_mode", None) == "slice"
+                and c.batch_size % buffer.slice_group):
+            raise ConfigError(
+                f"slice_group ({buffer.slice_group}) must divide batch_size "
+                f"({c.batch_size}) when updates_per_sample_batch > 1"
+            )
 
     @staticmethod
     def _check_nstep_clip(agent, buffer) -> None:
@@ -160,20 +200,53 @@ class Trainer:
         return agent_state, vec_state, buf_state, ep_ret, ep_cnt
 
     def _update_scan(self, agent_state, buf_state, gen: torch.Generator):
-        """M sequential gradient steps: sample → update.  Returns the
-        metrics' means, tensors still on the device."""
+        """M gradient steps: sample → update → priority feedback.  Returns
+        the metrics' means, tensors still on the device.
+
+        Uniform replay has two more orders, as in the JAX trainer:
+        ``updates_per_sample_batch`` = u > 1 draws one sample of ``B·u``
+        and cuts it into u sub-batches; ``prefetch_sample`` starts the
+        sample for update i+1 before update i (M+1 samples a chunk, the
+        last unused).  On one CUDA stream prefetching only reorders the
+        launches; it is kept so the draws come in the reference's order.
+        PER keeps the sequential order: its draw depends on the priorities
+        the previous update wrote."""
+        c = self.config
+        B, M = c.batch_size, self.updates_per_chunk
+        uniform = self.buffer.per is None
+        ups = c.updates_per_sample_batch if uniform else 1
         sums: Dict[str, Any] = {}
-        for _ in range(self.updates_per_chunk):
-            batch = self.buffer.sample(
-                buf_state, gen, self.config.batch_size, n_opts=agent_state.n_opts
-            )
-            agent_state, metrics, td_err = self.agent.update(agent_state, batch, gen)
-            buf_state = self.buffer.update_priority(
-                buf_state, batch.ix_sample, td_err
-            )
+
+        def sample(n):
+            return self.buffer.sample(buf_state, gen, n,
+                                      n_opts=agent_state.n_opts)
+
+        def update(batch):
+            state, metrics, td_err = self.agent.update(agent_state, batch, gen)
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
-        means = {k: v / self.updates_per_chunk for k, v in sums.items()}
+            return state, td_err
+
+        if ups > 1:
+            for _ in range(M // ups):
+                big = sample(B * ups)
+                for i in range(ups):
+                    agent_state, _ = update(_slice_batch(big, i * B, (i + 1) * B))
+        elif uniform and c.prefetch_sample:
+            batch = sample(B)
+            for _ in range(M):
+                next_batch = sample(B)  # for iteration i+1
+                agent_state, _ = update(batch)
+                batch = next_batch
+        else:
+            for _ in range(M):
+                batch = sample(B)
+                agent_state, td_err = update(batch)
+                if td_err is not None:
+                    buf_state = self.buffer.update_priority(
+                        buf_state, batch.ix_sample, td_err
+                    )
+        means = {k: v / M for k, v in sums.items()}
         return agent_state, buf_state, means
 
     def _chunk(self, agent_state, vec_state, buf_state, gen: torch.Generator,
@@ -208,10 +281,21 @@ class Trainer:
         seed: Optional[int] = None,
         agent_state: Optional[Any] = None,
         buffer_state: Optional[Any] = None,
+        resume_from: Optional[Any] = None,
     ) -> TrainResult:
         """Run the training loop.  ``seed`` (default ``config.seed``) seeds
         the agent's initial parameters, the envs, and the loop's action and
-        replay draws, each from its own generator."""
+        replay draws, each from its own generator.
+
+        ``resume_from``: a :class:`border_tpu_torch.utils.CheckpointManager`
+        whose latest full-state checkpoint (agent, buffer and env states,
+        both generators, loop counters) is restored before the loop starts:
+        the resumed run continues bit-exactly where the checkpointed run
+        stood.  ``eval_history`` covers only the evaluations after the
+        resume; their seed indices go on from the saved count (the JAX
+        trainer restarts them at 0, so its resumed run evaluates on other
+        resets than its uninterrupted one).
+        """
         c = self.config
         seed = c.seed if seed is None else seed
         init_agent, vec_state, init_buffer = self.init_states(seed, seed + 1)
@@ -222,9 +306,42 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(seed + 2)
 
         env_steps = opt_steps = 0
+        best_score = -float("inf")
+        eval_history: List[Tuple[int, float]] = []
+        # evaluations made since step 0, before a resume too: the index
+        # that seeds each evaluation's resets and actions
+        n_evals = 0
+        next_eval = c.eval_interval
+        next_save = c.save_interval if c.save_interval else None
         next_flush = c.flush_record_interval
         next_cost = c.record_compute_cost_interval
+        next_ckpt = self.checkpoint_interval
         next_agent_info = 0
+
+        if resume_from is not None:
+            restored = resume_from.restore(
+                agent_state, buffer_state, vec_state, key=gen
+            )
+            agent_state = restored["agent_state"]
+            buffer_state = restored["buffer_state"]
+            vec_state = restored["vec_state"]
+            ex = restored["extra"]
+            env_steps = int(ex["env_steps"])
+            opt_steps = int(ex["opt_steps"])
+            best_score = float(ex["best_score"])
+            n_evals = int(ex["n_evals"])
+            next_eval = int(ex["next_eval"])
+            next_save = _reconcile_next_cadence(
+                int(ex["next_save"]), c.save_interval, opt_steps
+            )
+            next_flush = int(ex["next_flush"])
+            next_ckpt = int(ex["next_ckpt"])
+            next_agent_info = int(ex["next_agent_info"])
+            next_cost = int(ex["next_cost"])
+
+        # the rates cover only this call's work: the counters may start
+        # non-zero after a resume
+        start_env_steps, start_opt_steps = env_steps, opt_steps
         cost_time, cost_updates, cost_transitions = 0.0, 0, 0
         transitions_per_chunk = c.steps_per_chunk * c.num_envs
         t0 = time.perf_counter()
@@ -291,6 +408,48 @@ class Trainer:
                 )
                 next_agent_info = opt_steps + c.record_agent_info_interval
 
+            # -- evaluation + best-model (≙ post_process, trainer.rs:231-264)
+            if self.evaluator is not None and opt_steps >= next_eval:
+                score, eval_rec = self.evaluator.evaluate(
+                    self.agent, agent_state, eval_index=n_evals
+                )
+                n_evals += 1
+                eval_history.append((opt_steps, score))
+                self.recorder.write_at(eval_rec, opt_steps)
+                if score > best_score:
+                    best_score = score
+                    if self.recorder.model_dir is not None:
+                        self.recorder.save_model("best", self.agent, agent_state)
+                if self.eval_callback is not None:
+                    self.eval_callback(opt_steps, env_steps, score, best_score)
+                next_eval += c.eval_interval
+
+            if next_save is not None and opt_steps >= next_save:
+                if self.recorder.model_dir is not None:
+                    self.recorder.save_model(str(opt_steps), self.agent, agent_state)
+                # advance PAST the current opt count: a chunk crossing
+                # several cadence points saves once and never falls behind
+                next_save = opt_steps + c.save_interval
+
+            if (self.checkpoint_manager is not None
+                    and self.checkpoint_interval and opt_steps >= next_ckpt):
+                next_ckpt = opt_steps + self.checkpoint_interval
+                self.checkpoint_manager.save(
+                    opt_steps, agent_state, buffer_state, vec_state, key=gen,
+                    extra={
+                        "env_steps": env_steps,
+                        "opt_steps": opt_steps,
+                        "best_score": best_score,
+                        "n_evals": n_evals,
+                        "next_eval": next_eval,
+                        "next_save": -1 if next_save is None else next_save,
+                        "next_flush": next_flush,
+                        "next_ckpt": next_ckpt,
+                        "next_agent_info": next_agent_info,
+                        "next_cost": next_cost,
+                    },
+                )
+
         duration = time.perf_counter() - t0
         self.recorder.flush(opt_steps)
         return TrainResult(
@@ -299,8 +458,8 @@ class Trainer:
             env_steps=env_steps,
             opt_steps=opt_steps,
             duration_sec=duration,
-            samples_per_sec=env_steps / duration,
-            opt_per_sec=opt_steps / duration,
-            best_score=-float("inf"),
-            eval_history=[],
+            samples_per_sec=(env_steps - start_env_steps) / duration,
+            opt_per_sec=(opt_steps - start_opt_steps) / duration,
+            best_score=best_score,
+            eval_history=eval_history,
         )

@@ -10,21 +10,44 @@ Phases, one line each (any failure exits non-zero with no result line):
    nvcc for sm_90a;
 3. each kernel against its plain PyTorch version on the card, bitwise: the
    frame gather at the main-path shape (a 1024·256-frame 84×84 uint8 ring,
-   512×5 indices) and at odd shapes, some of them on the byte path
-   (frame size or base address not a multiple of 16 bytes);
+   512×5 indices), at 512×4 indices (separate mode and n-step), at the
+   slice mode's runs of consecutive indices, at odd shapes, some of
+   them on the byte path (frame size or base address not a multiple of 16
+   bytes), and on the two other rings phases 8 and 9 hand it: the
+   prioritized path's 1024·512 frames (3.70 GB, half of the indices past
+   byte offset 2^31) and the slice mode's 1024·(256+5) frames (env stride
+   261) with the indices the buffer's own slice sample makes;
 4. the kernel, its plain version and one PyTorch call for the same function
-   timed with CUDA events (median over launches, fresh indices each launch
-   so the gathered frames come from device memory, not the L2), beside the
-   least time the card could take (bytes moved over 3.35 TB/s);
+   timed with CUDA events at 512×5 and 512×4 indices (median over
+   launches, fresh indices each launch so the gathered frames come from
+   device memory, not the L2), beside the least time the card could take
+   (bytes moved over 3.35 TB/s);
 5. the port against its own CPU path on small inputs (env steps bitwise, a
-   float32 DQN update to 1e-4);
-6. the main path: Trainer.train() on Pong at the bench.py config (1024
+   float32 DQN update to 1e-4), and the sum tree at 2^19 leaves: the same
+   update batches (duplicate indices among them) and the same injected
+   uniforms on the card and on the CPU give the same sampled leaves and,
+   to 1e-6 relative, the same totals and weights;
+6. the uniform path: Trainer.train() on Pong at the bench.py config (1024
    envs, 32 steps a chunk, batch 512, 8 gradient samples per transition,
-   bf16 AtariCNN), until several update chunks of 512 updates have run;
-   the gather's launch count must equal the number of updates.
+   bf16 AtariCNN), until two update chunks of 512 updates have run;
+   the gather's launch count must equal the number of updates;
 7. where a chunk's time goes: its env and update phases timed apart in
    this run, and a few env steps and updates traced with torch.profiler
-   (device busy time, idle share, launches, the kernels that take most).
+   (device busy time, idle share, launches, the kernels that take most);
+8. the prioritized path at the pong_per gate config's width (1024 envs,
+   batch 512, a 1024 × 512-frame ring of 3.70 GB, a sum tree of 2^19
+   leaves) with an Evaluator (10 episodes, 200 steps) and a full-state
+   checkpoint after every update chunk: one warmup chunk and two update
+   chunks.  The gather's launch count must equal the number of updates,
+   the tree's total stay finite and positive, every sampled leaf have
+   priority, the evaluator's record hold its five keys, and a second
+   Trainer resumed from the first checkpoint must end bitwise equal
+   (agent state and replay state) to the uninterrupted run.  On the final
+   tree the JAX tree's descent, which lacks the port's test for a dead
+   right subtree, is counted for the dead leaves it returns.  Then phase 7
+   for this path;
+9. one update chunk each of sample_mode="slice" and of n_step=3 at the
+   same width (1 and 2 gather launches a sample).
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -32,12 +55,15 @@ Then a ``{"kernels": [...]}`` line, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -46,8 +72,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # main-path shapes (bench.py's Pong config)
 NUM_ENVS, CAPACITY, FRAME_HW, STACK = 1024, 256, (84, 84), 4
 BATCH, STEPS_PER_CHUNK, OPT_INTERVAL = 512, 32, 64
-UPDATE_CHUNKS = 3
+UPDATE_CHUNKS = 2
 TIMED_LAUNCHES = 60
+# the prioritized path (the pong_per learning-gate config)
+PER_CAPACITY, EVAL_EPISODES, EVAL_MAX_STEPS = 512, 10, 200
+SLICE_GROUP = 64  # the JAX buffer's default
+EVAL_KEYS = {"Episode return", "Episode return min", "Episode return max",
+             "Episode length", "Episodes truncated"}
 
 
 def fail(msg: str) -> None:
@@ -95,6 +126,7 @@ def main() -> None:
     # (shape, B, S, dtype, offset of the base in elements); frames whose
     # size or base is not 16-byte aligned take the kernel's byte path
     cases = [((m, *FRAME_HW), BATCH, STACK + 1, torch.uint8, 0),
+             ((m, *FRAME_HW), BATCH, STACK, torch.uint8, 0),  # separate, n-step
              ((37, 84, 84), 9, 4, torch.uint8, 0),
              ((16, 12, 20), 7, 5, torch.uint8, 0),
              ((16, 12, 20), 7, 5, torch.float32, 0),
@@ -122,14 +154,22 @@ def main() -> None:
         if not torch.equal(out, ref):
             fail(f"gather_frames disagrees with frames[idx] at {shape} "
                  f"{b}x{s} {dtype} offset {offset}: max abs err {err}")
+    # slice mode's indices: per sample one run of stack+1 consecutive
+    # frames, its first c positions clamped to frame c (c = 0..stack-1)
+    base = torch.randint(0, m - STACK - 1, (BATCH, 1), generator=g, device=dev)
+    c = torch.randint(0, STACK, (BATCH, 1), generator=g, device=dev)
+    runs = (base + torch.maximum(torch.arange(STACK + 1, device=dev)[None, :], c)
+            ).to(torch.int32)
+    if not torch.equal(gather_frames(frames, runs), gather_frames_ref(frames, runs)):
+        fail("gather_frames disagrees with frames[idx] on runs of "
+             "consecutive indices (slice mode)")
     print(f"kernel check: frame_gather bitwise equal to frames[idx] at "
-          f"{len(cases)} shapes, max_abs_err {max_abs_err}", flush=True)
+          f"{len(cases)} shapes and on {BATCH} runs of {STACK + 1} consecutive "
+          f"frames, max_abs_err {max_abs_err}", flush=True)
+    other_ring_checks(torch, dev, g)
 
     # -- 4. timing -------------------------------------------------------------
-    idxs = torch.randint(0, m, (TIMED_LAUNCHES + 5, BATCH, STACK + 1),
-                         generator=g, device=dev, dtype=torch.int32)
-
-    def time_ms(fn) -> float:
+    def time_ms(fn, idxs) -> float:
         for i in range(5):  # warm-up
             fn(idxs[TIMED_LAUNCHES + i])
         torch.cuda.synchronize()
@@ -147,31 +187,45 @@ def main() -> None:
             ev[i].elapsed_time(ev[i + 1]) for i in range(TIMED_LAUNCHES))
 
     frame_bytes = FRAME_HW[0] * FRAME_HW[1]
-    gather_bytes = (2 * BATCH * (STACK + 1) * frame_bytes
-                    + BATCH * (STACK + 1) * 4)
     launches0 = frame_gather.gather_frames.launches
-    timing = {
-        "ms": time_ms(lambda i: gather_frames(frames, i)),
-        "plain_ms": time_ms(lambda i: gather_frames_ref(frames, i)),
-        "library_ms": time_ms(lambda i: frames[i]),
-    }
+    timings = {}
+    for width in (STACK + 1, STACK):
+        idxs = torch.randint(0, m, (TIMED_LAUNCHES + 5, BATCH, width),
+                             generator=g, device=dev, dtype=torch.int32)
+        gather_bytes = 2 * BATCH * width * frame_bytes + BATCH * width * 4
+        t = {
+            "ms": time_ms(lambda i: gather_frames(frames, i), idxs),
+            "plain_ms": time_ms(lambda i: gather_frames_ref(frames, i), idxs),
+            "library_ms": time_ms(lambda i: frames[i], idxs),
+            "bound_ms": 1e3 * gather_bytes / HBM_BYTES_PER_S,
+        }
+        timings[width] = t
+        print(f"timing frame_gather [262144,84,84] uint8 x [512,{width}]: "
+              + json.dumps({k: round(v, 5) for k, v in t.items()})
+              + f" ({gather_bytes} B over 3.35 TB/s)", flush=True)
     frame_gather.gather_frames.launches = launches0
-    bound_ms = 1e3 * gather_bytes / HBM_BYTES_PER_S
-    print("timing frame_gather [262144,84,84] uint8 x [512,5]: "
-          + json.dumps({k: round(v, 5) for k, v in timing.items()})
-          + f" bound_ms {bound_ms:.5f} ({gather_bytes} B over 3.35 TB/s)",
-          flush=True)
+    timing = timings[STACK + 1]
+    bound_ms = timing["bound_ms"]
     del frames, idxs
     torch.cuda.empty_cache()
 
     # -- 5. the port against its CPU path on small inputs ------------------
     reference_checks(torch, dev)
+    sum_tree_check(torch, dev)
 
-    # -- 6. the main path ---------------------------------------------------
+    # -- 6. the uniform path --------------------------------------------------
     launches, tr, r = main_path(torch, dev)
 
     # -- 7. where a chunk's time goes ----------------------------------------
-    breakdown(torch, tr, r)
+    breakdown(torch, tr, r, "uniform")
+    del tr, r
+    torch.cuda.empty_cache()
+
+    # -- 8. the prioritized path, with evaluation, checkpoints and resume ---
+    launches += per_path(torch, dev)
+
+    # -- 9. slice mode and n-step 3 -------------------------------------------
+    launches += mode_paths(torch, dev)
 
     kernels = [{
         "name": "frame_gather",
@@ -186,11 +240,93 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": timing["library_ms"],
+        # the second shape the paths launch: [512, 4] indices
+        "stack_width": {k: timings[STACK][k] for k in
+                        ("ms", "plain_ms", "bound_ms", "library_ms")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def other_ring_checks(torch, dev, g) -> None:
+    """The gather against its plain version, bitwise, on the rings of
+    phases 8 and 9, filled with random bytes."""
+    from border_tpu_torch.ops.frame_gather import gather_frames, gather_frames_ref
+    from border_tpu_torch.replay import FrameReplayBuffer
+
+    def rand_ring(*shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    # the prioritized path's ring: frames from `past` on lie wholly beyond
+    # byte offset 2^31, and the second half of every batch reads there
+    m = NUM_ENVS * PER_CAPACITY
+    ring = rand_ring(m, *FRAME_HW)
+    past = 2**31 // (FRAME_HW[0] * FRAME_HW[1]) + 1
+    for width in (STACK + 1, STACK):
+        idx = torch.randint(0, m, (BATCH, width), generator=g, device=dev,
+                            dtype=torch.int32)
+        idx[BATCH // 2:] = torch.randint(
+            past, m, (BATCH - BATCH // 2, width), generator=g, device=dev,
+            dtype=torch.int32)
+        idx[-1, -1] = m - 1
+        if not torch.equal(gather_frames(ring, idx), gather_frames_ref(ring, idx)):
+            fail(f"gather_frames disagrees with frames[idx] on the "
+                 f"prioritized path's ring [{m}, 84, 84] at {BATCH}x{width}")
+    del ring
+    torch.cuda.empty_cache()
+
+    # the slice mode's ring through the buffer's own sample: the steps are
+    # drawn over a wrapped ring, the ages make every clamp c = 0..stack-1
+    buf = FrameReplayBuffer(capacity=CAPACITY, num_envs=NUM_ENVS,
+                            sample_mode="slice", slice_group=SLICE_GROUP)
+    st = buf.init()
+    slots = CAPACITY + STACK + 1
+    if tuple(st.frames.shape) != (NUM_ENVS, slots, *FRAME_HW):
+        fail(f"slice ring of shape {tuple(st.frames.shape)}")
+    st.frames = rand_ring(*st.frames.shape)
+    st.age = torch.randint(0, 2 * STACK, st.age.shape, generator=g, device=dev,
+                           dtype=torch.int32)
+    st.total = 3 * CAPACITY + 17
+    e, s = buf.draw(st, g, BATCH)
+    batch = buf.sample_at(st, e, s)
+    c = (STACK - 1 - st.age[e, s % CAPACITY].long()).clamp_min(0)
+    js = torch.arange(STACK + 1, device=dev)
+    idx = (e * slots + (s - (STACK - 1)) % CAPACITY)[:, None] + torch.maximum(
+        js[None, :], c[:, None])
+    flat = st.frames.view(-1, *FRAME_HW)
+    ref = gather_frames_ref(flat, idx.to(torch.int32))
+    if not (idx.max().item() < flat.shape[0] and len(c.unique()) == STACK
+            and torch.equal(gather_frames(flat, idx.to(torch.int32)), ref)
+            and torch.equal(batch.obs, ref[:, :STACK].permute(0, 2, 3, 1))
+            and torch.equal(batch.next_obs, ref[:, 1:].permute(0, 2, 3, 1))):
+        fail(f"gather_frames disagrees with frames[idx] on the slice mode's "
+             f"ring [{flat.shape[0]}, 84, 84] at the buffer's own indices")
+    print(f"kernel check: frame_gather bitwise equal to frames[idx] on the "
+          f"prioritized path's ring [{m}, 84, 84] ({BATCH}x{STACK + 1} and "
+          f"{BATCH}x{STACK} indices, half of them past byte offset 2^31) and on "
+          f"the slice mode's ring [{flat.shape[0]}, 84, 84] (env stride {slots}, "
+          f"the buffer's own {BATCH}x{STACK + 1} indices)", flush=True)
+    del st, batch, flat, ref
+    torch.cuda.empty_cache()
+
+
+def reference_descent(torch, sum_tree, u):
+    """The JAX tree's descent (border_tpu/replay/sum_tree.py:111-131) for
+    the injected draws ``u``: no test for a dead right subtree."""
+    b, cap = u.shape[0], sum_tree.shape[0] // 2
+    mass = (torch.arange(b, dtype=torch.float32, device=u.device) + u) * (
+        sum_tree[1] / b)
+    nodes = torch.ones(b, dtype=torch.int64, device=u.device)
+    for _ in range(cap.bit_length() - 1):
+        left = 2 * nodes
+        left_sum = sum_tree[left]
+        go_right = mass >= left_sum
+        nodes = left + go_right
+        mass = torch.where(go_right, mass - left_sum, mass)
+    return nodes - cap
 
 
 def reference_checks(torch, dev) -> None:
@@ -256,11 +392,54 @@ def reference_checks(torch, dev) -> None:
           f"{mc['loss'].item():.6g} on the CPU (rtol 1e-4)", flush=True)
 
 
+def sum_tree_check(torch, dev) -> None:
+    """The sum tree at 2^19 leaves on the card against the port's CPU path:
+    the same update batches (a push-sized one with dead leaves, then
+    batch-sized ones whose duplicate indices carry different priorities)
+    and the same injected uniforms."""
+    from border_tpu_torch.replay import SumTree
+
+    leaves = NUM_ENVS * PER_CAPACITY
+    g = torch.Generator().manual_seed(4)
+    trees = {d: SumTree(leaves, device=d) for d in ("cpu", dev)}
+    states = {d: t.init() for d, t in trees.items()}
+    batches = []
+    idx = torch.randperm(leaves, generator=g)[: NUM_ENVS * (STACK + 1) * 40]
+    pr = torch.rand(idx.shape, generator=g) * 2 + 0.01
+    pr[torch.rand(idx.shape, generator=g) < 0.2] = 0.0
+    batches.append((idx, pr))
+    for _ in range(4):
+        i = idx[torch.randint(0, len(idx), (BATCH,), generator=g)]
+        i[BATCH // 2:] = i[: BATCH // 2]  # every index twice, two priorities
+        batches.append((i, torch.rand(BATCH, generator=g) * 5 + 1e-3))
+    for i, p in batches:
+        for d, t in trees.items():
+            t.update(states[d], i.to(d), p.to(d))
+    u = torch.rand(BATCH, generator=g)
+    got = {d: t.sample(states[d], BATCH, u=u.to(d)) for d, t in trees.items()}
+    w = {d: t.weights(states[d], got[d], 500_000, 0.5) for d, t in trees.items()}
+    torch.cuda.synchronize()
+    if not torch.equal(got[dev].cpu(), got["cpu"]):
+        fail("sum tree: the card samples other leaves than the CPU path")
+    if not (states["cpu"].sum_tree[leaves + got["cpu"]] > 0).all():
+        fail("sum tree: a sampled leaf has no priority")
+    total_c, total_g = (trees[d].total(states[d]).item() for d in ("cpu", dev))
+    close = dict(rtol=1e-6, atol=0.0)
+    if not (math.isclose(total_c, total_g, rel_tol=1e-6)
+            and torch.allclose(states[dev].sum_tree.cpu(), states["cpu"].sum_tree, **close)
+            and torch.equal(states[dev].min_tree.cpu(), states["cpu"].min_tree)
+            and torch.allclose(w[dev].cpu(), w["cpu"], **close)):
+        fail(f"sum tree: totals {total_g} vs {total_c} or weights differ "
+             f"by more than 1e-6 relative")
+    print(f"sum tree check: {leaves} leaves, {len(batches)} update batches "
+          f"with duplicate indices, {BATCH} injected uniforms: same leaves on "
+          f"the card and the CPU, total {total_g:.6f} vs {total_c:.6f}, "
+          f"weights within 1e-6 relative", flush=True)
+
+
 def to_device(x, device, torch):
     """A copy of a (nested) dataclass of tensors on ``device``; a CUDA
     generator becomes a CPU one (its draws are not compared)."""
-    import dataclasses
-
     if dataclasses.is_dataclass(x):
         return type(x)(**{f.name: to_device(getattr(x, f.name), device, torch)
                           for f in dataclasses.fields(x)})
@@ -274,19 +453,8 @@ def main_path(torch, dev):
     from border_tpu_torch.envs import make
     from border_tpu_torch.models import AtariCNN
     from border_tpu_torch.ops import frame_gather
-    from border_tpu_torch.record import NullRecorder
     from border_tpu_torch.replay import FrameReplayBuffer
     from border_tpu_torch.train import Trainer, TrainerConfig
-
-    class ChunkRecorder(NullRecorder):
-        """Keeps the record the trainer stores for every chunk."""
-
-        def __init__(self):
-            super().__init__()
-            self.chunks = []
-
-        def store(self, record):
-            self.chunks.append(record)
 
     env = make("Pong-v0")
     agent = DQN(DQNConfig(model=lambda n: AtariCNN(n), lr=1e-4,
@@ -298,7 +466,7 @@ def main_path(torch, dev):
         max_opts=UPDATE_CHUNKS * updates_per_chunk,
     )
     buf = FrameReplayBuffer(capacity=CAPACITY, num_envs=NUM_ENVS)
-    rec = ChunkRecorder()
+    rec = _chunk_recorder()
     tr = Trainer(env, agent, buf, cfg, recorder=rec)
     if tr.updates_per_chunk != updates_per_chunk:
         fail(f"updates_per_chunk {tr.updates_per_chunk} != {updates_per_chunk}")
@@ -306,6 +474,7 @@ def main_path(torch, dev):
     before = [p.detach().clone() for p in agent.init(
         0, tr.vec.observation_space, tr.vec.action_space).params.parameters()]
 
+    torch.cuda.reset_peak_memory_stats()
     # the counts are set to 0 just before the main path and read just after
     frame_gather.gather_frames.launches = 0
     r = tr.train(seed=0)
@@ -344,22 +513,301 @@ def main_path(torch, dev):
         "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print(f"main path: Trainer.train() Pong, {NUM_ENVS} envs, batch {BATCH}, "
+    print(f"uniform path: Trainer.train() Pong, {NUM_ENVS} envs, batch {BATCH}, "
           f"{r.opt_steps} updates in {UPDATE_CHUNKS} update chunks; "
           f"env-steps/s {eps[-1]:.1f}, updates/s {ups[-1]:.2f} (last chunk); "
           f"final loss {losses[-1]:.6g}; frame_gather launches {launches} "
           f"= updates {r.opt_steps}", flush=True)
-    print("main path numbers: " + json.dumps(result), flush=True)
+    print("uniform path numbers: " + json.dumps(result), flush=True)
     return launches, tr, r
 
 
-def breakdown(torch, tr, r) -> None:
-    """The env and update phases of a main-path chunk timed apart (host
+def _packed_leaves(tree, prefix=""):
+    """(path, leaf) pairs of a state packed by ``pack_state``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _packed_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _equal(a, b) -> bool:
+    """``torch.equal`` in pieces of 256 Mi elements: on the card it makes a
+    mask as large as its operands, a third ring's worth for a ring."""
+    return a.shape == b.shape and all(
+        x.equal(y) for x, y in zip(a.reshape(-1).split(1 << 28),
+                                          b.reshape(-1).split(1 << 28)))
+
+
+def _chunk_recorder():
+    from border_tpu_torch.record import NullRecorder
+
+    class ChunkRecorder(NullRecorder):
+        """Keeps the record the trainer stores for every chunk, and the
+        records written at once (evaluations)."""
+
+        def __init__(self):
+            super().__init__()
+            self.chunks, self.written = [], []
+
+        def store(self, record):
+            self.chunks.append(record)
+
+        def write_at(self, record, step):
+            self.written.append(record)
+
+    return ChunkRecorder()
+
+
+def per_path(torch, dev) -> int:
+    """Phase 8.  Returns the gather launches of its two runs."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.replay import FrameReplayBuffer, PerConfig
+    from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
+    from border_tpu_torch.utils import CheckpointManager
+    from border_tpu_torch.utils.checkpoint import pack_state
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    class TimedEvaluator(Evaluator):
+        seconds = ()
+
+        def evaluate(self, *a, **kw):
+            out, t = timed(lambda: super(TimedEvaluator, self).evaluate(*a, **kw))
+            self.seconds += (t,)
+            return out
+
+    class TimedManager(CheckpointManager):
+        save_s, restore_s = (), ()
+
+        def save(self, *a, **kw):
+            _, t = timed(lambda: super(TimedManager, self).save(*a, **kw))
+            self.save_s += (t,)
+
+        def restore(self, *a, **kw):
+            out, t = timed(lambda: super(TimedManager, self).restore(*a, **kw))
+            self.restore_s += (t,)
+            return out
+
+    upc = STEPS_PER_CHUNK * NUM_ENVS // OPT_INTERVAL
+
+    def build(manager):
+        agent = DQN(DQNConfig(model=lambda n: AtariCNN(n), lr=1e-4,
+                              double_dqn=True, soft_update_interval=2_000,
+                              tau=1.0, eps_final_step=2_000_000))
+        buf = FrameReplayBuffer(capacity=PER_CAPACITY, num_envs=NUM_ENVS,
+                                per=PerConfig(n_opts_final=50_000))
+        cfg = TrainerConfig(
+            num_envs=NUM_ENVS, steps_per_chunk=STEPS_PER_CHUNK, batch_size=BATCH,
+            opt_interval=OPT_INTERVAL, warmup_period=0, eval_interval=upc,
+            max_opts=2 * upc)
+        rec = _chunk_recorder()
+        ev = TimedEvaluator(make("Pong-v0", train=False),
+                            n_episodes=EVAL_EPISODES, max_steps=EVAL_MAX_STEPS)
+        tr = Trainer(make("Pong-v0"), agent, buf, cfg, recorder=rec,
+                     evaluator=ev, checkpoint_manager=manager,
+                     checkpoint_interval=upc if manager else 0)
+        return tr, rec, ev
+
+    work = tempfile.mkdtemp(prefix="border_smoke_")
+    try:
+        free_gb = shutil.disk_usage(work).free / 1e9
+        if free_gb < 9:
+            fail(f"{work} has {free_gb:.1f} GB free; two checkpoints of "
+                 f"3.75 GB need 9")
+        # -- the uninterrupted run: warmup chunk, two update chunks ---------
+        mgr = TimedManager(os.path.join(work, "whole"), max_to_keep=2)
+        tr, rec, ev = build(mgr)
+        torch.cuda.reset_peak_memory_stats()
+        frame_gather.gather_frames.launches = 0
+        r = tr.train(seed=0)
+        torch.cuda.synchronize()
+        launches = frame_gather.gather_frames.launches
+
+        chunks = [c for c in rec.chunks if "opt_steps_per_sec" in c]
+        losses = [c["loss"] for c in chunks]
+        if len(chunks) != 2 or not all(map(math.isfinite, losses)):
+            fail(f"PER path: update chunks {len(chunks)}, losses {losses}")
+        if r.opt_steps != 2 * upc or launches != r.opt_steps:
+            fail(f"PER path: frame_gather launched {launches} times for "
+                 f"{r.opt_steps} updates")
+        tree, cap = r.buffer_state.tree, tr.buffer.tree.capacity
+        total = tree.sum_tree[1].item()
+        if not (math.isfinite(total) and total > 0):
+            fail(f"PER path: the tree's total is {total}")
+        # every leaf the sampler draws from the final state has priority
+        g = torch.Generator(device=dev).manual_seed(9)
+        for _ in range(32):
+            e, s, w = tr.buffer.draw_per(r.buffer_state, g, BATCH, r.opt_steps)
+            leaf = e * PER_CAPACITY + s % PER_CAPACITY
+            if not ((tree.sum_tree[cap + leaf] > 0).all()
+                    and torch.isfinite(w).all() and (w > 0).all()):
+                fail("PER path: a sampled leaf has no priority")
+        # the JAX tree's descent on this tree with the same draws: random
+        # ones, then batches whose top stratum draws u = 1 - 2^-24, which
+        # puts its mass point at the total (511 + u rounds up to 512)
+        n_random, n_top = 256, 64
+        dead_random = dead_top = 0
+        for i in range(n_random + n_top):
+            u = torch.rand(BATCH, generator=g, device=dev)
+            if i >= n_random:
+                u[-1] = 1 - 2.0 ** -24
+            want = reference_descent(torch, tree.sum_tree, u)
+            got = tr.buffer.tree.sample(tree, BATCH, u=u)
+            live = tree.sum_tree[cap + want] > 0
+            if not ((tree.sum_tree[cap + got] > 0).all()
+                    and torch.equal(got[live], want[live])):
+                fail("PER path: the descent left the reference's where that "
+                     "one is live, or returned a dead leaf")
+            if i < n_random:
+                dead_random += int((~live).sum())
+            else:
+                dead_top += int(~live[-1])
+        evals = [w_ for w_ in rec.written if "Episode return" in w_]
+        if len(evals) != 2 or any({k for k, _ in w_} != EVAL_KEYS for w_ in evals):
+            fail(f"PER path: evaluation records {[dict(w_.items()) for w_ in evals]}")
+        if len(r.eval_history) != 2 or mgr.all_steps() != [upc, 2 * upc]:
+            fail(f"PER path: evaluations {r.eval_history}, checkpoints "
+                 f"{mgr.all_steps()}")
+        ckpt_gb = os.path.getsize(mgr._path(upc)) / 1e9
+
+        # -- a second trainer resumed from the FIRST checkpoint -------------
+        os.makedirs(os.path.join(work, "killed"))
+        os.rename(os.path.dirname(mgr._path(upc)),
+                  os.path.join(work, "killed", str(upc)))
+        mgr2 = TimedManager(os.path.join(work, "killed"))
+        tr2, rec2, _ = build(None)
+        # in this run every draw of the path is checked for residency (five
+        # more small launches an update, so its times are not reported)
+        dead = torch.zeros((), dtype=torch.int64, device=dev)
+        draw_per = tr2.buffer.draw_per
+
+        def checked_draw(state, *a, **kw):
+            e, s, w = draw_per(state, *a, **kw)
+            leaf = e * PER_CAPACITY + s % PER_CAPACITY
+            dead.add_((state.tree.sum_tree[cap + leaf] == 0).sum())
+            return e, s, w
+
+        tr2.buffer.draw_per = checked_draw
+        frame_gather.gather_frames.launches = 0
+        r2 = tr2.train(seed=0, resume_from=mgr2)
+        torch.cuda.synchronize()
+        launches2 = frame_gather.gather_frames.launches
+        if r2.opt_steps != 2 * upc or launches2 != upc:
+            fail(f"resumed run: {r2.opt_steps} updates, {launches2} launches")
+        if dead.item():
+            fail(f"resumed run: {dead.item()} sampled leaves had no priority")
+        if r2.buffer_state.total != r.buffer_state.total:
+            fail("resumed run: another number of pushes")
+        for name in ("agent_state", "buffer_state"):
+            a = dict(_packed_leaves(pack_state(getattr(r, name))))
+            b = dict(_packed_leaves(pack_state(getattr(r2, name))))
+            bad = [k for k in a if a.keys() != b.keys() or not (
+                _equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k])]
+            if bad:
+                fail(f"resumed run differs from the uninterrupted run in "
+                     f"{name}: {bad[:8]}")
+        if r2.eval_history != r.eval_history[1:]:
+            fail(f"resumed run's evaluations {r2.eval_history} vs "
+                 f"{r.eval_history[1:]}")
+
+        result = {
+            "env_steps": r.env_steps, "updates": r.opt_steps,
+            "gather_launches": launches, "resumed_gather_launches": launches2,
+            "final_loss": losses[-1], "tree_total": total,
+            "env_steps_per_s_chunks": [c["samples_per_sec"] for c in chunks],
+            "updates_per_s_chunks": [c["opt_steps_per_sec"] for c in chunks],
+            "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
+            "eval_scores": [s for _, s in r.eval_history],
+            "eval_record": dict(evals[-1].items()),
+            "evaluator_s": list(ev.seconds),
+            "checkpoint_gb": ckpt_gb, "checkpoint_save_s": list(mgr.save_s),
+            "checkpoint_restore_s": list(mgr2.restore_s),
+            "checkpoint_dir_free_gb": free_gb,
+            "reference_descent_dead_leaves": {
+                "random_points": [dead_random, n_random * BATCH],
+                "top_stratum_points_at_the_total": [dead_top, n_top]},
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        print(f"PER path: Trainer.train() Pong, {NUM_ENVS} envs, batch {BATCH}, "
+              f"ring {NUM_ENVS}x{PER_CAPACITY}, {r.opt_steps} updates in 2 "
+              f"update chunks; env-steps/s {chunks[-1]['samples_per_sec']:.1f}, "
+              f"updates/s {chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); "
+              f"frame_gather launches {launches} = updates; tree total "
+              f"{total:.3f}; checkpoint {ckpt_gb:.3f} GB; a Trainer resumed "
+              f"from step {upc} ended bitwise equal at step {r2.opt_steps}",
+              flush=True)
+        print("PER path numbers: " + json.dumps(result), flush=True)
+        del tr2, r2, rec2
+        torch.cuda.empty_cache()
+        breakdown(torch, tr, r, "per")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches + launches2
+
+
+def mode_paths(torch, dev) -> int:
+    """Phase 9: a warmup chunk and one update chunk of slice mode and of
+    n-step 3 at the main width.  Returns the gather launches."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig
+
+    upc = STEPS_PER_CHUNK * NUM_ENVS // OPT_INTERVAL
+    total = 0
+    for label, kw, per_sample in (
+            ("sample_mode='slice'", dict(sample_mode="slice", slice_group=SLICE_GROUP), 1),
+            ("n_step=3", dict(n_step=3), 2)):
+        agent = DQN(DQNConfig(model=lambda n: AtariCNN(n), lr=1e-4,
+                              double_dqn=True, soft_update_interval=2_000,
+                              tau=1.0))
+        rec = _chunk_recorder()
+        tr = Trainer(
+            make("Pong-v0"), agent,
+            FrameReplayBuffer(capacity=CAPACITY, num_envs=NUM_ENVS, **kw),
+            TrainerConfig(num_envs=NUM_ENVS, steps_per_chunk=STEPS_PER_CHUNK,
+                          batch_size=BATCH, opt_interval=OPT_INTERVAL,
+                          warmup_period=0, max_opts=upc),
+            recorder=rec)
+        frame_gather.gather_frames.launches = 0
+        r = tr.train(seed=0)
+        torch.cuda.synchronize()
+        launches = frame_gather.gather_frames.launches
+        chunk = rec.chunks[-1]
+        if r.opt_steps != upc or launches != per_sample * upc:
+            fail(f"{label}: {launches} gather launches for {r.opt_steps} updates")
+        if not (math.isfinite(chunk["loss"]) and all(
+                torch.isfinite(p).all() for p in r.agent_state.params.parameters())):
+            fail(f"{label}: loss {chunk['loss']} or parameters not finite")
+        print(f"{label} path: {r.opt_steps} updates in one chunk, "
+              f"{launches} frame_gather launches ({per_sample} a sample), "
+              f"loss {chunk['loss']:.6g}, env-steps/s "
+              f"{chunk['samples_per_sec']:.1f}, updates/s "
+              f"{chunk['opt_steps_per_sec']:.2f}", flush=True)
+        total += launches
+        del tr, r
+        torch.cuda.empty_cache()
+    return total
+
+
+def breakdown(torch, tr, r, label: str) -> None:
+    """The env and update phases of a chunk of ``tr``'s path timed apart (host
     clock, each ending in a device sync), then a shorter stretch of each
     traced with torch.profiler: device busy time, idle share of the traced
     wall (the profiler's own host cost is in that wall), launches and the
     kernels with the most device time.  Starts from the main path's final
-    agent and replay state."""
+    agent and replay state, with the trainer's own buffer (and its modes)."""
     from torch.profiler import ProfilerActivity, profile
 
     from border_tpu_torch.train import Trainer, TrainerConfig
@@ -416,7 +864,7 @@ def breakdown(torch, tr, r) -> None:
         }
     if not out["update_trace"]["device_busy_ms_each"] > 0:
         fail("the profiler saw no device time in the update trace")
-    print("breakdown: " + json.dumps(out), flush=True)
+    print(f"breakdown ({label}): " + json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

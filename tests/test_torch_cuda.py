@@ -1,5 +1,7 @@
 """Tests that need the card: the port's CUDA kernels against their plain
-PyTorch versions, bitwise.  They skip without a CUDA device.
+PyTorch versions, bitwise; the sum tree on the card against the CPU path;
+a small prioritized train-checkpoint-resume on the card.  They skip without
+a CUDA device.
 
 This file imports no JAX, so on a machine without it (the GPU machine) it
 runs without the repo's JAX test harness:
@@ -19,6 +21,7 @@ from border_tpu_torch.ops import gather_frames, gather_frames_ref
     "shape, b, s, dtype",
     [
         ((37, 84, 84), 9, 4, torch.uint8),
+        ((4096, 84, 84), 512, 4, torch.uint8),  # separate mode, n-step
         ((16, 12, 20), 7, 5, torch.uint8),
         ((16, 12, 20), 7, 5, torch.float32),
         ((1031, 84, 84), 513, 5, torch.uint8),  # B·S not a multiple of the block
@@ -42,6 +45,25 @@ def test_gather_frames_kernel_matches_plain_version_on_card(shape, b, s, dtype,
     torch.cuda.synchronize()
     assert frame_gather.gather_frames.launches == launches + 1
     assert torch.equal(out, gather_frames_ref(frames, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [5, 4])
+def test_gather_frames_kernel_reads_past_byte_offset_2_31(s):
+    """A ring the size of the prioritized path's (1024·512 frames, 3.70 GB):
+    half of the indices name frames that lie wholly past byte 2^31."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    m = 1024 * 512
+    frames = torch.randint(0, 256, (m, 84, 84), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    past = 2**31 // (84 * 84) + 1
+    idx = torch.randint(0, m, (512, s), generator=g, device="cuda",
+                        dtype=torch.int32)
+    idx[256:] = torch.randint(past, m, (256, s), generator=g, device="cuda",
+                              dtype=torch.int32)
+    idx[-1, -1] = m - 1
+    assert torch.equal(gather_frames(frames, idx), gather_frames_ref(frames, idx))
 
 
 def _cuda():
@@ -93,3 +115,118 @@ def test_gather_frames_raises_on_non_contiguous_cuda_input():
     idx = torch.zeros((2, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         gather_frames(frames.transpose(1, 2), idx)
+
+
+@pytest.mark.cuda
+def test_sum_tree_on_card_matches_cpu_path():
+    """The same updates (duplicate indices with different priorities among
+    them) and injected uniforms: the same leaves; trees and weights to 1e-6
+    relative."""
+    from border_tpu_torch.replay import SumTree
+
+    dev = _cuda()
+    cap, b = 4096, 256
+    g = torch.Generator().manual_seed(0)
+    trees = {d: SumTree(cap, device=d) for d in ("cpu", dev)}
+    states = {d: t.init() for d, t in trees.items()}
+    for _ in range(6):
+        idx = torch.randint(0, cap, (b,), generator=g)
+        idx[b // 2:] = idx[: b // 2]
+        pr = torch.rand(b, generator=g) * 3
+        pr[torch.rand(b, generator=g) < 0.1] = 0.0
+        for d, t in trees.items():
+            t.update(states[d], idx.to(d), pr.to(d))
+    u = torch.rand(b, generator=g)
+    leaves = {d: t.sample(states[d], b, u=u.to(d)) for d, t in trees.items()}
+    assert torch.equal(leaves[dev].cpu(), leaves["cpu"])
+    for name in ("sum_tree", "min_tree", "max_priority"):
+        torch.testing.assert_close(getattr(states[dev], name).cpu(),
+                                   getattr(states["cpu"], name),
+                                   rtol=1e-6, atol=0.0)
+    for norm_all in (True, False):
+        w = {d: t.weights(states[d], leaves[d], 3000, 0.6, norm_all)
+             for d, t in trees.items()}
+        torch.testing.assert_close(w[dev].cpu(), w["cpu"], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, per_sample", [
+    (dict(sample_mode="union"), 1), (dict(sample_mode="separate"), 2),
+    (dict(sample_mode="slice", slice_group=4), 1), (dict(n_step=3), 2)])
+def test_every_mode_reads_through_the_kernel_and_matches_cpu_path(mode, per_sample):
+    import types
+
+    from border_tpu_torch.replay import FrameReplayBuffer
+
+    dev = _cuda()
+    n, cap = 8, 32
+    bufs = {d: FrameReplayBuffer(cap, n, device=d, **mode) for d in ("cpu", dev)}
+    states = {d: b.init() for d, b in bufs.items()}
+    g = torch.Generator().manual_seed(0)
+    ep = torch.zeros(n, dtype=torch.int32)
+    for _ in range(cap + 5):
+        obs = torch.randint(0, 256, (n, 84, 84, 4), generator=g, dtype=torch.uint8)
+        term = torch.rand(n, generator=g) < 0.2
+        for d, b in bufs.items():
+            ts = types.SimpleNamespace(
+                reward=torch.ones(n, device=d), terminated=term.to(d),
+                truncated=torch.zeros(n, dtype=torch.bool, device=d))
+            states[d] = b.process_step(states[d], obs.to(d),
+                                       torch.zeros(n, dtype=torch.int32, device=d),
+                                       ts, ep.to(d))
+        ep = torch.where(term, 0, ep + 1).to(torch.int32)
+    e, s = bufs["cpu"].draw(states["cpu"], g, 64)
+    launches = frame_gather.gather_frames.launches
+    got = bufs[dev].sample_at(states[dev], e.to(dev), s.to(dev))
+    torch.cuda.synchronize()
+    assert frame_gather.gather_frames.launches == launches + per_sample
+    want = bufs["cpu"].sample_at(states["cpu"], e, s)
+    for name in ("obs", "next_obs", "terminated", "reward", "ix_sample"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_per_train_checkpoint_resume_on_card(tmp_path):
+    """A small prioritized run on the card, checkpointed every chunk, and a
+    second trainer resumed from the first checkpoint: bitwise the same
+    parameters, tree and ring; one gather launch per update."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.replay import FrameReplayBuffer, PerConfig
+    from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
+    from border_tpu_torch.utils import CheckpointManager
+
+    _cuda()
+    upc = 8
+
+    def trainer(max_opts, manager=None):
+        return Trainer(
+            make("Pong-v0"),
+            DQN(DQNConfig(model=AtariCNN, lr=1e-4, double_dqn=True)),
+            FrameReplayBuffer(32, 16, per=PerConfig(n_opts_final=32)),
+            TrainerConfig(num_envs=16, steps_per_chunk=8, batch_size=32,
+                          opt_interval=16, warmup_period=0, max_opts=max_opts,
+                          eval_interval=upc),
+            evaluator=Evaluator(make("Pong-v0", train=False), 2, 8),
+            checkpoint_manager=manager,
+            checkpoint_interval=upc if manager else 0)
+
+    launches = frame_gather.gather_frames.launches
+    want = trainer(3 * upc).train()
+    torch.cuda.synchronize()
+    assert frame_gather.gather_frames.launches == launches + 3 * upc
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
+    trainer(upc, mgr).train()
+    assert mgr.all_steps() == [upc]
+    got = trainer(3 * upc).train(resume_from=mgr)
+    assert got.opt_steps == want.opt_steps == 3 * upc
+    for a, b in zip(got.agent_state.params.parameters(),
+                    want.agent_state.params.parameters()):
+        assert torch.equal(a, b)
+    for name in ("sum_tree", "min_tree", "max_priority"):
+        assert torch.equal(getattr(got.buffer_state.tree, name),
+                           getattr(want.buffer_state.tree, name)), name
+    assert torch.equal(got.buffer_state.frames, want.buffer_state.frames)
+    assert got.buffer_state.total == want.buffer_state.total
+    assert got.eval_history == want.eval_history[1:]

@@ -1,6 +1,7 @@
 """Package rules of the port: it imports neither JAX nor the JAX package,
 and its entry points run on the GPU unless the caller asks for the CPU."""
 
+import re
 import subprocess
 import sys
 import textwrap
@@ -35,6 +36,26 @@ def test_port_imports_no_jax_and_nothing_of_border_tpu():
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 25  # every submodule was imported
+
+
+def test_port_sources_name_no_jax_module_in_an_import():
+    """A grep over the port's sources and ``chip_smoke.py``: no import
+    statement, at any depth (inside functions too), names jax, flax, optax,
+    orbax or the JAX package."""
+    root = Path(__file__).resolve().parents[1]
+    files = sorted((root / "border_tpu_torch").rglob("*.py")) + [
+        root / "chip_smoke.py"]
+    assert len(files) >= 30
+    banned = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|border_tpu)(?:[.\s]|$)",
+        re.MULTILINE)
+    bad = [f"{f.relative_to(root)}: {m.group(0).strip()}"
+           for f in files for m in banned.finditer(f.read_text())]
+    assert not bad, bad
+    # the pattern does catch what it should
+    assert banned.search("    from border_tpu.replay import x")
+    assert banned.search("import jax")
+    assert not banned.search("from border_tpu_torch.replay import x")
 
 
 def _no_gpu(monkeypatch):

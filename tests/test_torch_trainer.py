@@ -17,6 +17,7 @@ states across with ``convert``, then runs both trainers' own loop bodies:
 """
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -37,9 +38,9 @@ from border_tpu_torch.envs import make
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.models import AtariCNN
 from border_tpu_torch.ops import frame_gather
-from border_tpu_torch.record import BufferedRecorder
-from border_tpu_torch.replay import FrameReplayBuffer
-from border_tpu_torch.train import Trainer, TrainerConfig
+from border_tpu_torch.record import BufferedRecorder, Record, TensorboardRecorder
+from border_tpu_torch.replay import FrameReplayBuffer, PerConfig
+from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
 
 N, K, B, CAP, LR = 4, 8, 8, 16, 1e-4
 AGENT_KW = dict(lr=LR, double_dqn=True, soft_update_interval=2_000, tau=1.0)
@@ -179,17 +180,201 @@ def test_config_yaml_round_trip_and_unported_knobs(tmp_path):
         str(tmp_path / "j.yaml"))
     assert TrainerConfig.load(str(tmp_path / "j.yaml")).prefetch_sample
 
-    def trainer(**kw):
+    def trainer(buffer_kw=None, **kw):
         return Trainer(make("Pong-v0"), DQN(DQNConfig(model=AtariCNN)),
-                       FrameReplayBuffer(8, 2, device="cpu"),
+                       FrameReplayBuffer(8, 2, device="cpu", **(buffer_kw or {})),
                        TrainerConfig(num_envs=2).replace(**kw), device="cpu")
 
     trainer()  # the defaults are accepted
+    # every knob of the JAX trainer is ported: none raises by itself
+    # (64 env steps × 2 envs / opt_interval 1 = 128 updates a chunk)
     for kw in (dict(prefetch_sample=True), dict(updates_per_sample_batch=2),
                dict(save_interval=10)):
-        with pytest.raises(ConfigError):
-            trainer(**kw)
-    with pytest.raises(ConfigError, match="A.7"):
-        Trainer(make("Pong-v0"), DQN(DQNConfig(model=AtariCNN)),
-                FrameReplayBuffer(8, 2, device="cpu"), TrainerConfig(num_envs=2),
-                evaluator=object(), device="cpu")
+        trainer(**kw)
+    assert trainer(updates_per_sample_batch=64).updates_per_chunk == 128
+    with pytest.raises(ConfigError, match="must divide the chunk's update"):
+        trainer(updates_per_sample_batch=3)
+    # slice mode: every sub-batch must hold whole groups (the JAX check
+    # lacks this)
+    slice_kw = dict(sample_mode="slice", slice_group=2)
+    trainer(slice_kw, updates_per_sample_batch=2, batch_size=64)
+    with pytest.raises(ConfigError, match="must divide batch_size"):
+        trainer(slice_kw, updates_per_sample_batch=2, batch_size=63)
+    # n-step buffers: clip_reward and a differing gamma are refused
+    with pytest.raises(ConfigError, match="clip_reward"):
+        Trainer(make("Pong-v0"),
+                DQN(DQNConfig(model=AtariCNN, clip_reward=1.0)),
+                FrameReplayBuffer(8, 2, n_step=3, device="cpu"),
+                TrainerConfig(num_envs=2), device="cpu")
+    with pytest.raises(ConfigError, match="gamma"):
+        trainer(dict(n_step=3, gamma=0.9))
+    tr = Trainer(make("Pong-v0"), DQN(DQNConfig(model=AtariCNN)),
+                 FrameReplayBuffer(8, 2, device="cpu"), TrainerConfig(num_envs=2),
+                 evaluator=object(), checkpoint_manager=object(),
+                 checkpoint_interval=5, eval_callback=print, device="cpu")
+    assert tr.checkpoint_interval == 5 and tr.eval_callback is print
+
+
+def _jax_uniform_draws(key, total, b):
+    """The (e, s) the JAX buffer's uniform branch draws for ``key``."""
+    size = min(total, CAP)
+    k_e, k_s = jax.random.split(key)
+    e = jax.random.randint(k_e, (b,), 0, N)
+    s = jax.random.randint(k_s, (b,), total - size + 4, total - 1)
+    return (torch.from_numpy(np.asarray(e, np.int64)),
+            torch.from_numpy(np.asarray(s, np.int64)))
+
+
+@pytest.mark.parametrize("variant", ["updates_per_sample_batch", "prefetch_sample"])
+def test_update_scan_variants_match_jax_trainer(variant, monkeypatch):
+    """Two updates a chunk through ``_update_scan``'s two other orders, the
+    JAX trainer's replay draws injected in its order: mean loss and q agree
+    to rtol 1e-4 (float32 convolutions summed in another order)."""
+    kw = {"updates_per_sample_batch": 2} if variant.startswith("updates") else {
+        "prefetch_sample": True}
+    cfg = dict(num_envs=N, steps_per_chunk=K, batch_size=B,
+               opt_interval=K * N // 2, warmup_period=0, **kw)
+    jtr = JaxTrainer(
+        jax_make("Pong-v0"),
+        JaxDQN(JaxDQNConfig(model=lambda n: JaxAtariCNN(n, dtype=jnp.float32),
+                            **AGENT_KW)),
+        JaxFrameReplayBuffer(capacity=CAP, num_envs=N), JaxTrainerConfig(**cfg))
+    ttr = Trainer(
+        make("Pong-v0"),
+        DQN(DQNConfig(model=lambda n: AtariCNN(n, dtype=torch.float32),
+                      **AGENT_KW)),
+        FrameReplayBuffer(capacity=CAP, num_envs=N, device="cpu"),
+        TrainerConfig(**cfg), device="cpu")
+    assert jtr.updates_per_chunk == ttr.updates_per_chunk == 2
+    ja, jv, jb = jtr.init_states(jax.random.PRNGKey(0), jax.random.PRNGKey(1))
+    ja, jv, jb, _, _ = jax.jit(
+        lambda a, v, b, k: jtr._env_scan(a, v, b, k, explore=False)
+    )(ja, jv, jb, jax.random.PRNGKey(2))
+    ta, _, tb = _carry(jtr, ttr, ja, jv, jb)
+
+    key = jax.random.PRNGKey(3)
+    keys = jax.random.split(key, 3)
+    if variant.startswith("updates"):
+        # one body iteration: ks = split(keys[1], ups + 1), sample on ks[0]
+        sample_keys = [(jax.random.split(keys[1], 3)[0], 2 * B)]
+    else:
+        # batch0 on keys[0], then one sample per iteration on split(k)[0]
+        sample_keys = [(keys[0], B)] + [
+            (jax.random.split(k)[0], B) for k in keys[1:]]
+    draws = iter([_jax_uniform_draws(k, tb.total, b) for k, b in sample_keys])
+    sizes = []
+
+    def draw(state, gen, b):
+        sizes.append(b)
+        return next(draws)
+
+    monkeypatch.setattr(ttr.buffer, "draw", draw)
+    ja, jb, jm = jax.jit(jtr._update_scan)(ja, jb, key)
+    ta, tb, tm = ttr._update_scan(ta, tb, torch.Generator().manual_seed(3))
+    assert sizes == [b for _, b in sample_keys]
+    assert ta.n_opts == int(ja.n_opts) == 2
+    np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), rtol=1e-4)
+    np.testing.assert_allclose(tm["q_mean"].item(), float(jm["q_mean"]),
+                               rtol=1e-4, atol=1e-6)
+
+
+def _small_trainer(recorder=None, evaluator=None, buffer_kw=None, **cfg):
+    base = dict(num_envs=8, steps_per_chunk=8, batch_size=16, opt_interval=16,
+                warmup_period=0, max_opts=4)
+    agent = DQN(DQNConfig(model=lambda n: AtariCNN(n, dtype=torch.float32),
+                          lr=1e-4, double_dqn=True))
+    return Trainer(make("Pong-v0"), agent,
+                   FrameReplayBuffer(capacity=32, num_envs=8, device="cpu",
+                                     **(buffer_kw or {})),
+                   TrainerConfig(**{**base, **cfg}), recorder=recorder,
+                   evaluator=evaluator, device="cpu")
+
+
+def _params(result):
+    return [p.detach().clone() for p in result.agent_state.params.parameters()]
+
+
+def test_prefetch_and_sub_batches_leave_the_first_update_chunk_unchanged():
+    """``prefetch_sample`` only reorders the launches: the first update
+    chunk draws the same samples in the same order (one more at its end),
+    so the parameters are bitwise those of the sequential loop.  With
+    ``updates_per_sample_batch`` = 2 one draw of 32 replaces two of 16:
+    other samples, same number of updates."""
+    plain = _small_trainer().train()
+    pre = _small_trainer(prefetch_sample=True).train()
+    assert plain.opt_steps == pre.opt_steps == 4
+    assert all(torch.equal(a, b) for a, b in zip(_params(plain), _params(pre)))
+    ups = _small_trainer(updates_per_sample_batch=2).train()
+    assert ups.opt_steps == 4
+    assert not all(torch.equal(a, b) for a, b in zip(_params(plain), _params(ups)))
+    assert all(torch.isfinite(p).all() for p in _params(ups))
+
+
+@pytest.mark.parametrize(
+    "buffer_kw",
+    [dict(sample_mode="slice", slice_group=4), dict(sample_mode="separate"),
+     dict(n_step=3), dict(sort_samples=True),
+     dict(per=PerConfig(n_opts_final=8))],
+    ids=["slice", "separate", "nstep3", "sorted", "per"],
+)
+def test_train_cpu_smoke_every_buffer_mode(buffer_kw):
+    rec = BufferedRecorder()
+    r = _small_trainer(recorder=rec, buffer_kw=buffer_kw, max_opts=8,
+                       flush_record_interval=1).train()
+    # n-step 3 needs two chunks of pushes before 16 samples are resident
+    assert r.opt_steps == 8
+    assert r.buffer_state.total == (32 if "n_step" in buffer_kw else 24)
+    losses = rec.scalars("loss")
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+    if "per" in buffer_kw:
+        tree = r.buffer_state.tree
+        assert 0 < tree.sum_tree[1].item() < float("inf")
+        live = tree.sum_tree[r.buffer_state.frames.shape[0] * 32:]
+        live = live[live > 0]
+        assert len(live.unique()) > 1  # priorities were fed back
+
+
+def test_best_model_and_periodic_saves_land_in_model_dir(tmp_path):
+    rec = BufferedRecorder(model_dir=str(tmp_path / "models"))
+    ev = Evaluator(make("Pong-v0", train=False), n_episodes=2, max_steps=3,
+                   device="cpu")
+    r = _small_trainer(recorder=rec, evaluator=ev, max_opts=12, eval_interval=4,
+                       save_interval=8).train()
+    # a save at 8; the next cadence point is 16, past the run's end
+    assert sorted(os.listdir(tmp_path / "models")) == ["8", "best"]
+    assert [s for s, _ in r.eval_history] == [4, 8, 12]
+    assert r.best_score == 0.0  # no point is scored in 3 steps
+    assert rec.scalars("Episode return") == [0.0, 0.0, 0.0]
+    # "best" is the FIRST evaluation's model: later equal scores do not
+    # replace it
+    tr = _small_trainer()
+    best = rec.load_model("best", tr.agent, tr.init_states(0, 1)[0])
+    assert best.n_opts == 4
+    # without a model_dir nothing is saved and nothing raises
+    _small_trainer(recorder=BufferedRecorder(), evaluator=ev, max_opts=8,
+                   eval_interval=4, save_interval=4).train()
+
+
+def test_tensorboard_recorder_writes_a_readable_event_file(tmp_path):
+    import glob
+
+    from tensorboard.backend.event_processing import event_file_loader
+
+    rec = TensorboardRecorder(str(tmp_path / "tb"))
+    assert rec.model_dir == str(tmp_path / "tb" / "model")
+    r = _small_trainer(recorder=rec, max_opts=8, flush_record_interval=4).train()
+    rec.write_at(Record({"q": torch.arange(6.0).reshape(2, 3),
+                         "w": torch.arange(5.0), "note": "text"}), 9)
+    rec.flush(9)
+    rec.close()
+    assert r.opt_steps == 8
+    path = glob.glob(str(tmp_path / "tb" / "events.*"))[0]
+    events = list(event_file_loader.LegacyEventFileLoader(path).Load())
+    assert events[0].file_version == "brain.Event:2"
+    scalars = {(e.step, v.tag) for e in events for v in e.summary.value
+               if v.HasField("simple_value")}
+    assert {(4, "loss"), (8, "loss"), (8, "opt_steps")} <= scalars
+    images = [v for e in events for v in e.summary.value if v.HasField("image")]
+    assert images[0].tag == "q" and images[0].image.width == 3
+    histos = [v for e in events for v in e.summary.value if v.HasField("histo")]
+    assert histos[0].tag == "w" and histos[0].histo.num == 5.0
