@@ -27,6 +27,25 @@ def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 CRITIC_LOSSES = {"smooth_l1": smooth_l1, "mse": mse}
 
 
+def quantile_huber_loss(
+    pred: torch.Tensor, tgt: torch.Tensor, taus: torch.Tensor,
+    kappa: float = 1.0,
+) -> torch.Tensor:
+    """Quantile Huber loss between pred quantiles [B, Kp] at fractions
+    ``taus`` [B, Kp] and target quantiles [B, Kt].
+
+    Returns the per-sample loss [B]: mean over target quantiles, sum over
+    predicted quantiles (the IQN paper's convention).
+    """
+    # pairwise TD errors u[b, kp, kt] = tgt[b, kt] - pred[b, kp]
+    u = tgt[:, None, :] - pred[:, :, None]
+    a = torch.abs(u)
+    huber = torch.where(a <= kappa, 0.5 * u * u, kappa * (a - 0.5 * kappa))
+    indicator = (u < 0.0).float()
+    loss = torch.abs(taus[:, :, None] - indicator) * huber / kappa
+    return loss.mean(dim=2).sum(dim=1)
+
+
 @torch.no_grad()
 def polyak_update(tau: float, online: nn.Module, target: nn.Module) -> None:
     """τ-polyak soft update, in place: tgt ← τ·online + (1−τ)·tgt

@@ -35,6 +35,7 @@ from border_tpu_torch.agents.common import (
 from border_tpu_torch.core import spaces
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.errors import ConfigError
+from border_tpu_torch.models.mlp import MLP, DuelingMLP
 from border_tpu_torch.replay.buffer import TransitionBatch
 from border_tpu_torch.utils.device import resolve_device
 
@@ -61,7 +62,8 @@ class DQNConfig:
     max_grad_norm: Optional[float] = None
     hidden: Sequence[int] = (64, 64)
     dueling: bool = False
-    # ``n_actions -> nn.Module`` factory, e.g. ``lambda n: AtariCNN(n)``
+    # ``n_actions -> nn.Module`` factory, e.g. ``lambda n: AtariCNN(n)``;
+    # None builds an MLP (or, with ``dueling``, a DuelingMLP) of ``hidden``
     model: Any = None
     # kept so configs carry over; both forwards of the double-DQN target
     # are plain forwards here ("stacked" and "separate" give the same values)
@@ -91,11 +93,6 @@ class DQN(Agent):
                 f"next_forward must be 'stacked', 'separate', or None "
                 f"(auto), got {config.next_forward!r}"
             )
-        if config.model is None:
-            raise ConfigError(
-                "the MLP models port with ROADMAP A.10; pass model= (e.g. "
-                "lambda n: AtariCNN(n))"
-            )
         if config.loss not in CRITIC_LOSSES:
             raise ConfigError(f"unknown loss {config.loss!r}")
         self.config = config
@@ -110,7 +107,13 @@ class DQN(Agent):
         device = resolve_device(device)
         gen = (seed_or_gen if isinstance(seed_or_gen, torch.Generator)
                else torch.Generator().manual_seed(int(seed_or_gen)))
-        net = self.config.model(act_space.n)
+        c = self.config
+        if c.model is not None:
+            net = c.model(act_space.n)
+        else:
+            mlp = DuelingMLP if c.dueling else MLP
+            net = mlp(in_dim=obs_space.flat_dim, out_dim=act_space.n,
+                      hidden=tuple(c.hidden))
         if hasattr(net, "reset_parameters"):
             net.reset_parameters(gen)
         net = net.to(device)

@@ -2,14 +2,23 @@
 
 Every function takes what the JAX side holds, as numpy arrays or anything
 ``numpy.asarray`` reads (flax param dicts, ``flax.struct`` states), and
-returns the port's counterpart on ``device``.  The module imports neither
+returns the port's counterpart on ``device`` (``None`` = the GPU, as for
+every entry point of the port; the parameter converters return CPU state
+dicts, which ``load_state_dict`` copies onto the module's device).  The module imports neither
 ``jax`` nor ``border_tpu``: it reads attributes and arrays only.
 
 - AtariCNN params: conv kernels ``HWIO → OIHW``, Dense kernels
   ``[in, out] → [out, in]``, and ``Dense_0``'s 3136 input rows permuted from
   the JAX NHWC flatten order (``h·448 + w·64 + c``) to the port's NCHW
   order (``c·49 + h·7 + w``).
-- ``PongState`` / ``PixelEnvState`` / ``VecEnvState`` → the port's env state.
+- MLP params: flax numbers its ``Dense_i`` in call order (the trunk, then
+  the heads); ``IQNNet``'s ψ MLP comes first and the f-net's numbers go on
+  from there, or, with a CNN ψ, the f-net is ``Dense_0``, ``Dense_1`` beside
+  the named ``psi``, ``psi_proj`` and ``phi``.
+- every game's state, ``PixelEnvState`` and ``VecEnvState`` → the port's env
+  state, field by field (both sides are batched ``[N, ...]``).
+- ``ReplayBufferState`` → the port's flat buffer state (``cursor`` and
+  ``size`` become host ints).
 - ``FrameReplayState`` → the port's buffer state: the ``(R, 128)`` tile
   padding of each stored frame is stripped back to ``H × W``; the slice
   mode's mirror slots stay on the frames only; a PER state's ``tree``
@@ -25,10 +34,18 @@ import numpy as np
 import torch
 
 from border_tpu_torch.agents.dqn import DQN, DQNState
+from border_tpu_torch.agents.iqn import IQN, IQNState
 from border_tpu_torch.core.env import VecEnvState
+from border_tpu_torch.envs import classic_control as cc
+from border_tpu_torch.envs.breakout import BreakoutState
+from border_tpu_torch.envs.freeway import FreewayState
 from border_tpu_torch.envs.pixel import PixelEnvState
 from border_tpu_torch.envs.pong import PongState
+from border_tpu_torch.envs.seaquest import SeaquestState
+from border_tpu_torch.envs.space_invaders import SpaceInvadersState
 from border_tpu_torch.models.cnn import AtariCNN
+from border_tpu_torch.models.iqn import IQNNet
+from border_tpu_torch.replay.buffer import ReplayBufferState, Transition
 from border_tpu_torch.replay.frame_buffer import FrameReplayState
 from border_tpu_torch.replay.sum_tree import SumTreeState
 from border_tpu_torch.utils.device import DeviceLike, as_generator, resolve_device
@@ -38,7 +55,7 @@ _CNN_LAYERS = (("Conv_0", "conv0"), ("Conv_1", "conv1"), ("Conv_2", "conv2"),
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+    return torch.as_tensor(np.array(x), device=resolve_device(device), dtype=dtype)
 
 
 def _dense0_rows(c: int = 64, h: int = 7, w: int = 7) -> np.ndarray:
@@ -91,6 +108,57 @@ def atari_cnn_to_flax(net: AtariCNN) -> Dict[str, Dict[str, np.ndarray]]:
     return {"params": out}
 
 
+def _dense(p: Dict[str, Any], name: str, prefix: str,
+           out: Dict[str, torch.Tensor]) -> None:
+    """flax ``Dense`` ``p[name]`` → ``out[prefix.weight / prefix.bias]``."""
+    k = np.asarray(p[name]["kernel"], np.float32)
+    out[f"{prefix}.weight"] = torch.from_numpy(k.T.copy())
+    out[f"{prefix}.bias"] = torch.from_numpy(
+        np.asarray(p[name]["bias"], np.float32).copy())
+
+
+def mlp_state_dict(net, flax_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``MLP`` / ``DuelingMLP`` / ``GaussianHeadMLP`` params → a state
+    dict for the port's module ``net`` of the same class: ``Dense_i`` in
+    call order are the trunk's layers, then the heads."""
+    p = flax_params.get("params", flax_params)
+    names = [f"layers.{i}" for i in range(len(net.layers))] + [
+        n for n, m in net.named_children() if m in net.heads()]
+    out: Dict[str, torch.Tensor] = {}
+    for i, prefix in enumerate(names):
+        _dense(p, f"Dense_{i}", prefix, out)
+    return out
+
+
+def iqn_net_state_dict(net: IQNNet,
+                       flax_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``IQNNet`` params → a state dict for the port's ``net``."""
+    p = flax_params.get("params", flax_params)
+    out: Dict[str, torch.Tensor] = {}
+    n_psi = 0
+    if net.psi is not None:
+        for k, v in atari_cnn_state_dict(p["psi"]).items():
+            out[f"psi.{k}"] = v
+        _dense(p, "psi_proj", "psi_proj", out)
+    else:
+        n_psi = len(net.psi_mlp)
+        for i in range(n_psi):
+            _dense(p, f"Dense_{i}", f"psi_mlp.{i}", out)
+    _dense(p, "phi", "phi", out)
+    for i in range(len(net.f)):
+        _dense(p, f"Dense_{n_psi + i}", f"f.{i}", out)
+    return out
+
+
+def net_state_dict(net, flax_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The converter that fits the port's module ``net``."""
+    if isinstance(net, AtariCNN):
+        return atari_cnn_state_dict(flax_params)
+    if isinstance(net, IQNNet):
+        return iqn_net_state_dict(net, flax_params)
+    return mlp_state_dict(net, flax_params)
+
+
 def load_atari_cnn(net: AtariCNN, flax_params: Dict[str, Any]) -> AtariCNN:
     """Copy flax params into ``net`` in place; returns ``net``."""
     net.load_state_dict(atari_cnn_state_dict(flax_params))
@@ -110,11 +178,32 @@ def dqn_state(agent: DQN, jax_state, obs_space, act_space,
             f"carries over"
         )
     st = agent.init(0, obs_space, act_space, device=device)
-    load_atari_cnn(st.params, jax_state.params)
-    load_atari_cnn(st.target_params, jax_state.target_params)
+    return _load_agent_state(st, jax_state, net_state_dict)
+
+
+def _load_agent_state(st, jax_state, to_state_dict):
+    """Copy the JAX state's two parameter sets and counters into ``st``."""
+    st.params.load_state_dict(to_state_dict(st.params, jax_state.params))
+    st.target_params.load_state_dict(
+        to_state_dict(st.target_params, jax_state.target_params))
     st.n_opts = int(np.asarray(jax_state.n_opts))
     st.n_samples = int(np.asarray(jax_state.n_samples))
     return st
+
+
+def iqn_state(agent: IQN, jax_state, obs_space, act_space,
+              device: DeviceLike = None) -> IQNState:
+    """An ``IQNState`` with the JAX state's online and target params and
+    counters, and a fresh optimizer (as :func:`dqn_state`)."""
+    device = resolve_device(device)
+    count = _adam_count(jax_state.opt_state)
+    if count:
+        raise ValueError(
+            f"optimizer state has taken {count} steps; only a fresh one "
+            f"carries over"
+        )
+    st = agent.init(0, obs_space, act_space, device=device)
+    return _load_agent_state(st, jax_state, iqn_net_state_dict)
 
 
 def _adam_count(opt_state) -> int:
@@ -126,18 +215,56 @@ def _adam_count(opt_state) -> int:
     return 0
 
 
-def pong_state(js, device: DeviceLike = "cpu") -> PongState:
-    """Batched JAX ``PongState`` (every field ``[N]``) → the port's."""
-    return PongState(**{
+def _copy_fields(cls, js, device):
+    """A batched JAX state → the port's dataclass ``cls`` of the same field
+    names, each field a tensor of the same dtype."""
+    return cls(**{
         f.name: _t(getattr(js, f.name), device)
-        for f in dataclasses.fields(PongState)
+        for f in dataclasses.fields(cls)
     })
 
 
-def pixel_env_state(js, device: DeviceLike = "cpu") -> PixelEnvState:
-    """Batched JAX ``PixelEnvState`` of Pong → the port's."""
+def _state_converter(cls):
+    def convert_state(js, device: DeviceLike = None):
+        return _copy_fields(cls, js, device)
+
+    convert_state.__doc__ = (
+        f"Batched JAX ``{cls.__name__}`` (a leading ``[N]`` axis on every "
+        f"field) → the port's.")
+    return convert_state
+
+
+pong_state = _state_converter(PongState)
+breakout_state = _state_converter(BreakoutState)
+seaquest_state = _state_converter(SeaquestState)
+freeway_state = _state_converter(FreewayState)
+space_invaders_state = _state_converter(SpaceInvadersState)
+cartpole_state = _state_converter(cc.CartPoleState)
+pendulum_state = _state_converter(cc.PendulumState)
+mountain_car_state = _state_converter(cc.MountainCarState)
+acrobot_state = _state_converter(cc.AcrobotState)
+
+_ENV_STATES = {
+    "PongState": pong_state, "BreakoutState": breakout_state,
+    "SeaquestState": seaquest_state, "FreewayState": freeway_state,
+    "SpaceInvadersState": space_invaders_state,
+    "CartPoleState": cartpole_state, "PendulumState": pendulum_state,
+    "MountainCarState": mountain_car_state, "AcrobotState": acrobot_state,
+}
+
+
+def env_state(js, device: DeviceLike = None):
+    """Any batched JAX env state → the port's, by the class's name."""
+    name = type(js).__name__
+    if name == "PixelEnvState":
+        return pixel_env_state(js, device)
+    return _ENV_STATES[name](js, device)
+
+
+def pixel_env_state(js, device: DeviceLike = None) -> PixelEnvState:
+    """Batched JAX ``PixelEnvState`` of any ported game → the port's."""
     return PixelEnvState(
-        game=pong_state(js.game, device),
+        game=env_state(js.game, device),
         frames=_t(js.frames, device),
         frame_count=_t(js.frame_count, device, torch.int32),
         t=_t(js.t, device, torch.int32),
@@ -146,12 +273,12 @@ def pixel_env_state(js, device: DeviceLike = "cpu") -> PixelEnvState:
     )
 
 
-def vec_env_state(js, seed_or_gen, device: DeviceLike = "cpu") -> VecEnvState:
+def vec_env_state(js, seed_or_gen, device: DeviceLike = None) -> VecEnvState:
     """JAX ``VecEnvState`` → the port's.  The JAX key has no counterpart:
     the port's env draws from ``seed_or_gen``."""
-    device = torch.device(device)
+    device = resolve_device(device)
     return VecEnvState(
-        env_state=pixel_env_state(js.env_state, device),
+        env_state=env_state(js.env_state, device),
         obs=_t(js.obs, device),
         episode_return=_t(js.episode_return, device, torch.float32),
         episode_length=_t(js.episode_length, device, torch.int32),
@@ -161,7 +288,7 @@ def vec_env_state(js, seed_or_gen, device: DeviceLike = "cpu") -> VecEnvState:
     )
 
 
-def sum_tree_state(js, device: DeviceLike = "cpu") -> SumTreeState:
+def sum_tree_state(js, device: DeviceLike = None) -> SumTreeState:
     """JAX ``SumTreeState`` → the port's (same heap layout)."""
     return SumTreeState(
         sum_tree=_t(js.sum_tree, device, torch.float32),
@@ -171,7 +298,7 @@ def sum_tree_state(js, device: DeviceLike = "cpu") -> SumTreeState:
 
 
 def frame_replay_state(js, frame_hw: Tuple[int, int] = (84, 84),
-                       device: DeviceLike = "cpu",
+                       device: DeviceLike = None,
                        capacity: Optional[int] = None) -> FrameReplayState:
     """JAX ``FrameReplayState`` (frames ``[N, slots, R, 128]``) → the port's
     unpadded ``[N, slots, H, W]`` ring.  In slice mode ``slots`` is the
@@ -192,5 +319,17 @@ def frame_replay_state(js, frame_hw: Tuple[int, int] = (84, 84),
         truncated=_t(js.truncated, device, torch.bool)[:, :cap],
         age=_t(js.age, device, torch.int32)[:, :cap],
         total=int(np.asarray(js.total)),
+        tree=None if tree is None else sum_tree_state(tree, device),
+    )
+
+
+def replay_state(js, device: DeviceLike = None) -> ReplayBufferState:
+    """JAX ``ReplayBufferState`` of the flat buffer → the port's, with its
+    tree when prioritized."""
+    tree = getattr(js, "tree", None)
+    return ReplayBufferState(
+        data=_copy_fields(Transition, js.data, device),
+        cursor=int(np.asarray(js.cursor)),
+        size=int(np.asarray(js.size)),
         tree=None if tree is None else sum_tree_state(tree, device),
     )

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from border_tpu_torch.core import spaces
@@ -57,6 +58,14 @@ def index_seed(base_seed: int, index: int) -> int:
     ``jax.random.fold_in``).  The same pair gives the same seed on every
     call; indices below 1_000_003 never collide under one base seed."""
     return int(base_seed) * 1_000_003 + int(index)
+
+
+def scale_uniform(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """Map U[0,1) float32 draws onto ``[lo, hi)`` with the arithmetic of
+    ``jax.random.uniform(minval=lo, maxval=hi)``: both bounds rounded to
+    float32 first, ``u·(hi − lo) + lo``, then clamped from below."""
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    return (u * float(hi32 - lo32) + float(lo32)).clamp_min(float(lo32))
 
 
 def where_state(mask: torch.Tensor, a: Any, b: Any) -> Any:

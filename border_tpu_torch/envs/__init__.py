@@ -1,6 +1,20 @@
-"""Batched on-device environments (≙ border_tpu/envs).  Ported so far:
-Pong under the DQN pixel wrapper."""
+"""Batched on-device environments (≙ border_tpu/envs): the classic-control
+family and the five pixel games under the DQN pixel wrapper."""
 
+from border_tpu_torch.envs.classic_control import (  # noqa: F401
+    Acrobot,
+    CartPole,
+    MountainCar,
+    MountainCarContinuous,
+    Pendulum,
+)
 from border_tpu_torch.envs.pixel import PixelEnv, PixelGame  # noqa: F401
 from border_tpu_torch.envs.pong import Pong, make_pong  # noqa: F401
+from border_tpu_torch.envs.breakout import Breakout, make_breakout  # noqa: F401
+from border_tpu_torch.envs.seaquest import Seaquest, make_seaquest  # noqa: F401
+from border_tpu_torch.envs.freeway import Freeway, make_freeway  # noqa: F401
+from border_tpu_torch.envs.space_invaders import (  # noqa: F401
+    SpaceInvaders,
+    make_space_invaders,
+)
 from border_tpu_torch.envs.registry import make, register, registry  # noqa: F401

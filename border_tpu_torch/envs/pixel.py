@@ -14,7 +14,8 @@ The game is any batched :class:`PixelGame`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Tuple
 
 import torch
 
@@ -22,6 +23,39 @@ from border_tpu_torch.core import spaces
 from border_tpu_torch.core.env import Environment, where_state
 
 FRAME_H = FRAME_W = 84
+
+
+@functools.lru_cache(maxsize=None)
+def const_tensor(values: Tuple, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """A (nested) tuple of numbers as a tensor on ``device``, made once: a
+    game's lookup tables must not cost a host→device copy a frame."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def pixel_grid(device: torch.device, denom: int = FRAME_H - 1):
+    """Pixel-centre coordinates ``ys [1, 84, 1]`` and ``xs [1, 1, 84]``,
+    ``index / denom`` in float32.  Divided on the host and made once: on a
+    CUDA tensor a division by a Python number multiplies by its reciprocal,
+    which rounds some coordinates another way than the division does."""
+    ys = (torch.arange(FRAME_H, dtype=torch.float32) / denom).to(device)
+    xs = (torch.arange(FRAME_W, dtype=torch.float32) / denom).to(device)
+    return ys[None, :, None], xs[None, None, :]
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a correctly rounded float32 division on every device
+    (see :func:`pixel_grid`): the divisor is a tensor on ``x``'s device."""
+    return x / const_tensor((c,), torch.float32, x.device)
+
+
+def first_free(on: torch.Tensor) -> torch.Tensor:
+    """One-hot ``[N, S]`` mask of each row's first false slot of ``on``
+    (all false where the row has no free slot): the batched form of
+    writing at ``argmin(on)``."""
+    free = ~on
+    return free & (free.cumsum(dim=1) == 1)
 
 
 class PixelGame:

@@ -15,7 +15,7 @@ import dataclasses
 import torch
 
 from border_tpu_torch.core.env import where_state
-from border_tpu_torch.envs.pixel import FRAME_H, FRAME_W, PixelEnv, PixelGame
+from border_tpu_torch.envs.pixel import PixelEnv, PixelGame, pixel_grid, true_div
 
 # geometry (normalized field; x: 0=left/opponent, 1=right/agent)
 PADDLE_HALF = 0.075
@@ -116,7 +116,7 @@ class Pong(PixelGame):
         speed = torch.clamp(torch.abs(state.vx) * 1.03, max=0.03)
 
         def hit(paddle_y, crossing, vx_sign):
-            offset = (by - paddle_y) / PADDLE_HALF
+            offset = true_div(by - paddle_y, PADDLE_HALF)
             contact = crossing & (torch.abs(by - paddle_y) <= PADDLE_HALF + BALL_R)
             return contact, vx_sign * speed, offset * BALL_VY_MAX
 
@@ -158,11 +158,7 @@ class Pong(PixelGame):
         """[N, 84, 84] uint8.  The masks are separable (a row test and a
         column test), so they are built as [N, 84, 1] & [N, 1, 84] products;
         each comparison is the same float32 arithmetic as the JAX version."""
-        dev = state.ball_x.device
-        ys = (torch.arange(FRAME_H, dtype=torch.float32, device=dev)
-              / (FRAME_H - 1))[None, :, None]
-        xs = (torch.arange(FRAME_W, dtype=torch.float32, device=dev)
-              / (FRAME_W - 1))[None, None, :]
+        ys, xs = pixel_grid(state.ball_x.device)
 
         def paddle_mask(px, py):
             cols = torch.abs(xs - px) <= PADDLE_W / 2 + 0.006

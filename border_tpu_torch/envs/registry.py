@@ -1,8 +1,8 @@
 """Environment registry — string id → Environment factory
 (≙ border_tpu/envs/registry.py).
 
-Only the ported envs are registered; an unported id raises the same
-``KeyError`` as the JAX registry.
+Every id of the JAX registry that the port implements is registered; the
+Reacher ids are not yet, and raise the same ``KeyError`` as an unknown id.
 """
 
 from __future__ import annotations
@@ -10,7 +10,12 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from border_tpu_torch.core.env import Environment
+from border_tpu_torch.envs import classic_control as cc
+from border_tpu_torch.envs.breakout import make_breakout
+from border_tpu_torch.envs.freeway import make_freeway
 from border_tpu_torch.envs.pong import make_pong
+from border_tpu_torch.envs.seaquest import make_seaquest
+from border_tpu_torch.envs.space_invaders import make_space_invaders
 
 registry: Dict[str, Callable[[], Environment]] = {}
 
@@ -27,4 +32,13 @@ def make(name: str, **kwargs) -> Environment:
     return registry[name](**kwargs)
 
 
+register("CartPole-v1", cc.CartPole)
+register("Pendulum-v1", cc.Pendulum)
+register("MountainCar-v0", cc.MountainCar)
+register("MountainCarContinuous-v0", cc.MountainCarContinuous)
+register("Acrobot-v1", cc.Acrobot)
 register("Pong-v0", make_pong)
+register("Breakout-v0", make_breakout)
+register("Seaquest-v0", make_seaquest)
+register("Freeway-v0", make_freeway)
+register("SpaceInvaders-v0", make_space_invaders)

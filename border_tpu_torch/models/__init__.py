@@ -1,4 +1,11 @@
-"""Neural network models (≙ border_tpu/models).  Ported so far: the Atari
-CNN."""
+"""Neural network models (≙ border_tpu/models): the Atari CNN, the MLPs and
+the implicit quantile network."""
 
 from border_tpu_torch.models.cnn import AtariCNN  # noqa: F401
+from border_tpu_torch.models.iqn import IQNNet  # noqa: F401
+from border_tpu_torch.models.mlp import (  # noqa: F401
+    ACTIVATIONS,
+    MLP,
+    DuelingMLP,
+    GaussianHeadMLP,
+)

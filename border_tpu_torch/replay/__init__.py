@@ -1,10 +1,11 @@
-"""Device-resident replay buffers (≙ border_tpu/replay).  Ported so far:
-the transition containers, the sum tree and the frame-dedup buffer (every
-mode but ``with_num_envs``); the flat ``ReplayBuffer`` follows with ROADMAP
-A.10."""
+"""Device-resident replay buffers (≙ border_tpu/replay): the flat ring
+buffer, the transition containers, the sum tree and the frame-dedup buffer
+(every mode but ``with_num_envs``)."""
 
 from border_tpu_torch.replay.buffer import (  # noqa: F401
     PerConfig,
+    ReplayBuffer,
+    ReplayBufferState,
     Transition,
     TransitionBatch,
 )

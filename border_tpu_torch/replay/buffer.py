@@ -1,16 +1,33 @@
-"""Transition containers (≙ border_tpu/replay/buffer.py).
+"""Ring replay buffer with uniform and prioritized sampling, and the
+transition containers (≙ border_tpu/replay/buffer.py).
 
-``Transition``, ``TransitionBatch`` and ``PerConfig`` are ported; the flat
-``ReplayBuffer`` follows with ROADMAP A.10.
+- storage is a ``Transition`` of ``[capacity, ...]`` device tensors,
+  allocated from one example transition (tensor observations; the JAX
+  buffer's dict observations come with the first env that makes them),
+- ``push`` writes a whole batch of transitions at the ring cursor (one push
+  per vectorised env step),
+- ``sample`` is a batched random read: plain tensor indexing, as the JAX
+  buffer's reads are XLA gathers outside any hand-written kernel,
+- PER uses the device :class:`~border_tpu_torch.replay.sum_tree.SumTree`
+  with β annealed linearly β₀→β_final over ``n_opts_final`` optimizer steps,
+- ``update_priority`` writes ``(|td| + eps)^α`` back into the tree.
+
+As in the port's frame buffer, ``push`` and ``update_priority`` write in
+place and return the same state, ``cursor`` and ``size`` are host ints
+(they advance by fixed amounts, so the draw range costs no device→host
+sync), and a uniform batch carries ``weight=None``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from border_tpu_torch.replay.sum_tree import SumTree, SumTreeState
+from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -74,3 +91,213 @@ class PerConfig:
         f32 = np.float32
         frac = np.clip(f32(n_opts) / f32(self.n_opts_final), f32(0), f32(1))
         return float(f32(self.beta_0) + frac * f32(self.beta_final - self.beta_0))
+
+
+@dataclasses.dataclass
+class ReplayBufferState:
+    data: Transition  # fields of [capacity, ...] tensors
+    cursor: int  # next write position
+    size: int  # number of valid entries
+    tree: Optional[SumTreeState] = None  # PER state (None when uniform)
+
+
+class ReplayBuffer:
+    """Flat ring buffer for the Trainer: ``sample() -> TransitionBatch``."""
+
+    def __init__(
+        self,
+        capacity: int,
+        per: Optional[PerConfig] = None,
+        n_step: int = 1,
+        gamma: float = 0.99,
+        stride: int = 1,
+        device: DeviceLike = None,
+    ):
+        """``n_step > 1`` makes ``sample`` return n-step backups
+        (``reward = Σ γ^k r_{t+k}`` stopped at the first episode boundary,
+        ``next_obs`` from t+m, ``discount = γ^m``).
+
+        ``stride`` is the ring distance between a transition and the SAME
+        env's next transition: 1 for sequentially pushed data, ``num_envs``
+        for lockstep vec-env pushes (each vec step pushes a ``[num_envs]``
+        batch)."""
+        self.capacity = capacity
+        self.per = per
+        self.n_step = n_step
+        self.gamma = gamma
+        self.stride = stride
+        self.device = resolve_device(device)
+        self.tree = SumTree(capacity, device=self.device) if per is not None else None
+        if self.tree is not None and self.tree.capacity != capacity:
+            raise ValueError(
+                "PER requires a power-of-two capacity "
+                f"(got {capacity}; next is {self.tree.capacity})"
+            )
+        if n_step > 1 and capacity < (n_step + 1) * stride:
+            raise ValueError("capacity too small for n_step × stride window")
+
+    def init(self, example: Transition) -> ReplayBufferState:
+        """Allocate ``[capacity, ...]`` storage from one example transition
+        (a shape and dtype template)."""
+        def zeros(x):
+            x = torch.as_tensor(x)
+            return torch.zeros((self.capacity, *x.shape), dtype=x.dtype,
+                               device=self.device)
+
+        data = Transition(**{
+            f.name: zeros(getattr(example, f.name))
+            for f in dataclasses.fields(Transition)
+        })
+        return ReplayBufferState(
+            data=data, cursor=0, size=0,
+            tree=self.tree.init() if self.tree is not None else None,
+        )
+
+    # -- ingest ------------------------------------------------------------
+    @torch.no_grad()
+    def push(self, state: ReplayBufferState, batch: Transition) -> ReplayBufferState:
+        """Write B transitions at the ring cursor (batch axis leading), in
+        place.  A push that does not wrap is one slice copy per field."""
+        n = batch.reward.shape[0]
+        c, cap = state.cursor, self.capacity
+        wraps = c + n > cap
+        idx = None
+        if wraps or self.tree is not None:
+            idx = torch.arange(c, c + n, device=self.device) % cap
+        where = idx if wraps else slice(c, c + n)
+
+        for f in dataclasses.fields(Transition):
+            store = getattr(state.data, f.name)
+            store[where] = getattr(batch, f.name).to(store.dtype)
+        if self.tree is not None:
+            # fresh transitions enter at the running max priority
+            self.tree.update(state.tree, idx, state.tree.max_priority.expand(n))
+        state.cursor = (c + n) % cap
+        state.size = min(state.size + n, cap)
+        return state
+
+    def process_step(
+        self, state: ReplayBufferState, prev_obs, action, ts, prev_ep_len
+    ) -> ReplayBufferState:
+        """Convert one vec-env Timestep into the stored format and push."""
+        return self.push(state, Transition(
+            obs=prev_obs, act=action, next_obs=ts.final_obs, reward=ts.reward,
+            terminated=ts.terminated, truncated=ts.truncated,
+        ))
+
+    def fill(self, state: ReplayBufferState) -> int:
+        """Sampleable transitions: for n-step buffers only positions whose
+        whole window is written count (matches ``draw``'s range
+        ``d ∈ [(n−1)·stride, size)``), so warmup cannot pass while samples
+        would land on unwritten zero slots."""
+        if self.n_step > 1:
+            return max(state.size - (self.n_step - 1) * self.stride, 0)
+        return state.size
+
+    # -- sampling ----------------------------------------------------------
+    def draw(self, state: ReplayBufferState, gen: Optional[torch.Generator],
+             batch_size: int, raw: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Uniform draw of storage indices ``[B]`` int64.  ``raw`` injects
+        the integers the generator would give: the index itself for 1-step
+        buffers, the "steps before the cursor" ``d`` for n-step ones."""
+        dev = self.device
+        if self.n_step > 1:
+            # d ∈ [(n−1)·stride, size): the whole n-step window is written
+            lo = (self.n_step - 1) * self.stride
+            hi = max(state.size, lo + 1)
+            d = raw if raw is not None else torch.randint(
+                lo, hi, (batch_size,), generator=gen, device=dev)
+            # under-filled guard: clamp into the written region (the window
+            # mask in _nstep_batch shortens windows that would cross the
+            # oldest data); fill() keeps warmup from sampling until real
+            # windows exist
+            d = d.clamp_max(max(state.size - 1, 0))
+            return (state.cursor - 1 - d) % self.capacity
+        if raw is not None:
+            return raw
+        return torch.randint(0, max(state.size, 1), (batch_size,),
+                             generator=gen, device=dev)
+
+    @torch.no_grad()
+    def draw_per(self, state: ReplayBufferState, gen: Optional[torch.Generator],
+                 batch_size: int, n_opts: int = 0,
+                 u: Optional[torch.Tensor] = None):
+        """Prioritized draw: ``(idx, weight)``.  ``u`` injects the descent's
+        uniform draws."""
+        idx = self.tree.sample(state.tree, batch_size, gen=gen, u=u)
+        idx = idx.clamp_max(max(state.size, 1) - 1)
+        weight = self.tree.weights(
+            state.tree, idx, state.size, self.per.beta(n_opts),
+            self.per.normalize_all,
+        )
+        return idx, weight
+
+    @torch.no_grad()
+    def sample_at(self, state: ReplayBufferState, idx: torch.Tensor,
+                  weight: Optional[torch.Tensor] = None) -> TransitionBatch:
+        """The batch for drawn storage indices ``idx``."""
+        if self.n_step > 1:
+            return self._nstep_batch(state, idx, weight)
+        data = state.data
+        return TransitionBatch(
+            obs=data.obs[idx], act=data.act[idx],
+            next_obs=data.next_obs[idx], reward=data.reward[idx],
+            terminated=data.terminated[idx], truncated=data.truncated[idx],
+            weight=weight, ix_sample=idx.to(torch.int32),
+        )
+
+    def _nstep_batch(self, state, idx, weight) -> TransitionBatch:
+        """n-step accumulation along each sampled env's timeline
+        (consecutive same-env transitions sit ``stride`` apart in the
+        ring), stopped at the first episode boundary and at the write
+        cursor (PER-sampled indices may sit close to it)."""
+        data, cap = state.data, self.capacity
+        ks = torch.arange(self.n_step, device=idx.device)  # [n]
+        pk = (idx[:, None] + ks[None, :] * self.stride) % cap
+        # steps-before-cursor of the base transition bounds the window
+        d = (state.cursor - 1 - idx) % cap
+        valid = ks[None, :] * self.stride <= d[:, None]
+        r_k = data.reward[pk]
+        done_k = data.terminated[pk] | data.truncated[pk]
+        done_i = done_k.to(torch.int32)
+        prior_done = done_i.cumsum(1) - done_i
+        continuing = ((prior_done == 0) & valid).float()
+        gammas = self.gamma ** ks.float()
+        reward_n = (r_k * gammas[None, :] * continuing).sum(1)
+        m = continuing.sum(1).to(torch.int32)  # ≥ 1 (k=0 valid)
+        p_last = (idx + (m - 1) * self.stride) % cap
+        return TransitionBatch(
+            obs=data.obs[idx],
+            act=data.act[idx],
+            next_obs=data.next_obs[p_last],
+            reward=reward_n,
+            terminated=data.terminated[p_last],
+            truncated=data.truncated[p_last],
+            weight=weight,
+            ix_sample=idx.to(torch.int32),
+            discount=self.gamma ** m.float(),
+        )
+
+    def sample(self, state: ReplayBufferState, gen: torch.Generator,
+               batch_size: int, n_opts: Optional[int] = None) -> TransitionBatch:
+        if self.per is not None:
+            return self.sample_at(
+                state, *self.draw_per(state, gen, batch_size, n_opts or 0))
+        return self.sample_at(state, self.draw(state, gen, batch_size))
+
+    # -- priority feedback -------------------------------------------------
+    @torch.no_grad()
+    def update_priority(self, state: ReplayBufferState, ix_sample, td_err):
+        """``(|td| + eps)^α`` into the tree, in place; no-op when uniform."""
+        if self.per is not None:
+            p = (td_err.abs() + self.per.eps) ** self.per.alpha
+            self.tree.update(state.tree, ix_sample, p)
+        return state
+
+    def diagnostics(self, state: ReplayBufferState) -> Dict[str, Any]:
+        n = state.size
+        return {
+            "num_terminated": state.data.terminated[:n].sum(),
+            "sum_rewards": state.data.reward[:n].sum(),
+            "size": n,
+        }

@@ -33,6 +33,7 @@ from border_tpu_torch.core.env import Environment, VecEnv
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.record.record import Record
 from border_tpu_torch.record.recorder import NullRecorder, Recorder
+from border_tpu_torch.replay.buffer import Transition
 from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -270,7 +271,19 @@ class Trainer:
             device=self.device,
         )
         vec_state = self.vec.reset(seed_env)
-        buffer_state = self.buffer.init()
+        # the template a flat buffer sizes its storage from (the frame
+        # buffer knows its shapes and ignores it)
+        obs0 = self.vec.observation_space.zero(self.device)
+        flag = torch.zeros((), dtype=torch.bool, device=self.device)
+        example = Transition(
+            obs=obs0,
+            act=self.vec.action_space.zero(self.device),
+            next_obs=obs0,
+            reward=torch.zeros((), device=self.device),
+            terminated=flag,
+            truncated=flag,
+        )
+        buffer_state = self.buffer.init(example)
         return agent_state, vec_state, buffer_state
 
     # ------------------------------------------------------------------

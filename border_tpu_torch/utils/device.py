@@ -1,7 +1,7 @@
 """Device resolution shared by the port's entry points.
 
-Entry points (``Trainer``, ``VecEnv``, ``FrameReplayBuffer``, ``DQN.init``)
-take ``device=None``, which means the GPU.  Without one they raise instead of
+Entry points (``Trainer``, ``VecEnv``, the replay buffers, ``DQN.init``,
+``IQN.init``) take ``device=None``, which means the GPU.  Without one they raise instead of
 falling back to the CPU: a caller that wants the CPU (the tests do) says so.
 """
 

@@ -10,7 +10,8 @@ Phases, one line each (any failure exits non-zero with no result line):
    nvcc for sm_90a;
 3. each kernel against its plain PyTorch version on the card, bitwise: the
    frame gather at the main-path shape (a 1024·256-frame 84×84 uint8 ring,
-   512×5 indices), at 512×4 indices (separate mode and n-step), at the
+   512×5 indices), at 512×4 indices (separate mode and n-step), at 256×5
+   (the Seaquest path's batch), at the
    slice mode's runs of consecutive indices, at odd shapes, some of
    them on the byte path (frame size or base address not a multiple of 16
    bytes), and on the two other rings phases 8 and 9 hand it: the
@@ -18,12 +19,13 @@ Phases, one line each (any failure exits non-zero with no result line):
    byte offset 2^31) and the slice mode's 1024·(256+5) frames (env stride
    261) with the indices the buffer's own slice sample makes;
 4. the kernel, its plain version and one PyTorch call for the same function
-   timed with CUDA events at 512×5 and 512×4 indices (median over
+   timed with CUDA events at 512×5, 512×4 and 256×5 indices (median over
    launches, fresh indices each launch so the gathered frames come from
    device memory, not the L2), beside the least time the card could take
    (bytes moved over 3.35 TB/s);
 5. the port against its own CPU path on small inputs (env steps bitwise, a
-   float32 DQN update to 1e-4), and the sum tree at 2^19 leaves: the same
+   float32 DQN update and a float32 IQN update with the same quantile
+   fractions to 1e-4), and the sum tree at 2^19 leaves: the same
    update batches (duplicate indices among them) and the same injected
    uniforms on the card and on the CPU give the same sampled leaves and,
    to 1e-6 relative, the same totals and weights;
@@ -47,7 +49,21 @@ Phases, one line each (any failure exits non-zero with no result line):
    right subtree, is counted for the dead leaves it returns.  Then phase 7
    for this path;
 9. one update chunk each of sample_mode="slice" and of n_step=3 at the
-   same width (1 and 2 gather launches a sample).
+   same width (1 and 2 gather launches a sample);
+10. IQN on Seaquest at the width of the seaquest learning-gate config (512
+    envs, batch 256, a 512 x 512-frame ring, psi = the Atari CNN's 512
+    features, 64 cosines, uniform8 / uniform8 / const32 quantile draws):
+    one warmup chunk, two update chunks of 256 updates and one evaluation
+    (10 episodes, 200 steps), then phase 7 for this path;
+11. one warmup chunk and one update chunk of DQN on Breakout, Freeway and
+    Space Invaders at their gate configs' width (512 envs, batch 512; the
+    last two with n_step=3), each with its kernel launches per env step;
+12. DQN on CartPole through the flat replay buffer at the width of
+    bench.py's fused config (4096 envs, 64 steps a chunk, batch 512, 1024
+    updates a chunk): one warmup chunk and two update chunks, then phase 7;
+13. the whole cartpole learning-gate config (12,000 updates, 128 envs,
+    n-step 3, an evaluation of 20 episodes every 500 updates), one seed:
+    the run fails under a best evaluation score of 100.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -77,6 +93,16 @@ TIMED_LAUNCHES = 60
 # the prioritized path (the pong_per learning-gate config)
 PER_CAPACITY, EVAL_EPISODES, EVAL_MAX_STEPS = 512, 10, 200
 SLICE_GROUP = 64  # the JAX buffer's default
+# the other pixel games (the seaquest, breakout, freeway and spaceinvaders
+# learning-gate configs): 512 envs, a 512 x 512-frame ring
+GAME_ENVS, GAME_CAPACITY, SEAQUEST_BATCH = 512, 512, 256
+# the flat-buffer path (bench.py's fused CartPole config)
+CART_ENVS, CART_STEPS, CART_OPT_INTERVAL, CART_CAPACITY = 4096, 64, 256, 65_536
+# the cartpole learning-gate config; the run fails under CART_MIN_SCORE
+CART_GATE = dict(max_opts=12_000, warmup_period=1_000, opt_interval=16,
+                 batch_size=256, num_envs=128, steps_per_chunk=32,
+                 eval_interval=500)
+CART_GATE_TARGET, CART_MIN_SCORE = 200.0, 100.0
 EVAL_KEYS = {"Episode return", "Episode return min", "Episode return max",
              "Episode length", "Episodes truncated"}
 
@@ -101,6 +127,7 @@ def main() -> None:
     from border_tpu_torch.ops.frame_gather import gather_frames, gather_frames_ref
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # -- 1. the card --------------------------------------------------------
     smi = subprocess.run(
@@ -127,6 +154,7 @@ def main() -> None:
     # size or base is not 16-byte aligned take the kernel's byte path
     cases = [((m, *FRAME_HW), BATCH, STACK + 1, torch.uint8, 0),
              ((m, *FRAME_HW), BATCH, STACK, torch.uint8, 0),  # separate, n-step
+             ((m, *FRAME_HW), SEAQUEST_BATCH, STACK + 1, torch.uint8, 0),
              ((37, 84, 84), 9, 4, torch.uint8, 0),
              ((16, 12, 20), 7, 5, torch.uint8, 0),
              ((16, 12, 20), 7, 5, torch.float32, 0),
@@ -189,22 +217,23 @@ def main() -> None:
     frame_bytes = FRAME_HW[0] * FRAME_HW[1]
     launches0 = frame_gather.gather_frames.launches
     timings = {}
-    for width in (STACK + 1, STACK):
-        idxs = torch.randint(0, m, (TIMED_LAUNCHES + 5, BATCH, width),
+    for batch, width in ((BATCH, STACK + 1), (BATCH, STACK),
+                         (SEAQUEST_BATCH, STACK + 1)):
+        idxs = torch.randint(0, m, (TIMED_LAUNCHES + 5, batch, width),
                              generator=g, device=dev, dtype=torch.int32)
-        gather_bytes = 2 * BATCH * width * frame_bytes + BATCH * width * 4
+        gather_bytes = 2 * batch * width * frame_bytes + batch * width * 4
         t = {
             "ms": time_ms(lambda i: gather_frames(frames, i), idxs),
             "plain_ms": time_ms(lambda i: gather_frames_ref(frames, i), idxs),
             "library_ms": time_ms(lambda i: frames[i], idxs),
             "bound_ms": 1e3 * gather_bytes / HBM_BYTES_PER_S,
         }
-        timings[width] = t
-        print(f"timing frame_gather [262144,84,84] uint8 x [512,{width}]: "
+        timings[batch, width] = t
+        print(f"timing frame_gather [262144,84,84] uint8 x [{batch},{width}]: "
               + json.dumps({k: round(v, 5) for k, v in t.items()})
               + f" ({gather_bytes} B over 3.35 TB/s)", flush=True)
     frame_gather.gather_frames.launches = launches0
-    timing = timings[STACK + 1]
+    timing = timings[BATCH, STACK + 1]
     bound_ms = timing["bound_ms"]
     del frames, idxs
     torch.cuda.empty_cache()
@@ -227,6 +256,16 @@ def main() -> None:
     # -- 9. slice mode and n-step 3 -------------------------------------------
     launches += mode_paths(torch, dev)
 
+    # -- 10. IQN on Seaquest ----------------------------------------------------
+    launches += seaquest_path(torch, dev)
+
+    # -- 11. Breakout, Freeway, Space Invaders -----------------------------------
+    launches += game_paths(torch, dev)
+
+    # -- 12, 13. the flat-buffer path: CartPole fused, then a run that learns ----
+    cartpole_fused_path(torch, dev)
+    cartpole_learns(torch, dev)
+
     kernels = [{
         "name": "frame_gather",
         "route": "cuda",
@@ -241,9 +280,14 @@ def main() -> None:
         "bound_by": "bytes",
         "library_ms": timing["library_ms"],
         # the second shape the paths launch: [512, 4] indices
-        "stack_width": {k: timings[STACK][k] for k in
+        "stack_width": {k: timings[BATCH, STACK][k] for k in
                         ("ms", "plain_ms", "bound_ms", "library_ms")},
+        # the third: [256, 5] indices (the Seaquest path's batch)
+        "batch_256": {k: timings[SEAQUEST_BATCH, STACK + 1][k] for k in
+                      ("ms", "plain_ms", "bound_ms", "library_ms")},
     }]
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -390,6 +434,38 @@ def reference_checks(torch, dev) -> None:
     print(f"reference check: 8 Pong steps x 64 envs bitwise equal to the CPU "
           f"path; float32 DQN update loss {mg['loss'].item():.6g} vs "
           f"{mc['loss'].item():.6g} on the CPU (rtol 1e-4)", flush=True)
+
+    # one float32 IQN update (CNN psi) with the same quantile fractions
+    import functools
+
+    from border_tpu_torch.agents import IQN, IQNConfig
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        iqn = IQN(IQNConfig(
+            psi_fn=functools.partial(AtariCNN, out_dim=0, skip_linear=True,
+                                     dtype=torch.float32),
+            feature_dim=64, n_cos=16, hidden=(64,), lr=1e-4))
+        taus = (torch.rand((b, 8), generator=bg), torch.rand((b, 8), generator=bg),
+                ((torch.arange(32.0) + 0.5) / 32).expand(b, 32))
+        out = {}
+        for d in (cpu, dev):
+            st = iqn.init(0, obs_space, act_space, device=d)
+            _, m, td = iqn.update(
+                st, TransitionBatch(**{k: v.to(d) for k, v in batch.items()}),
+                taus=tuple(t.to(d) for t in taus))
+            out[d] = (m["loss"].item(), td.cpu())
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not (math.isclose(out[dev][0], out[cpu][0], rel_tol=1e-4)
+            and torch.allclose(out[dev][1], out[cpu][1], rtol=1e-4, atol=1e-5)):
+        fail(f"IQN update differs: loss {out[dev][0]} vs {out[cpu][0]}, td "
+             f"errors by {(out[dev][1] - out[cpu][1]).abs().max().item()}")
+    print(f"reference check: float32 IQN update (CNN psi, batch {b}, injected "
+          f"quantile fractions) loss {out[dev][0]:.6g} vs {out[cpu][0]:.6g} on "
+          f"the CPU, td errors within rtol 1e-4 / atol 1e-5", flush=True)
 
 
 def sum_tree_check(torch, dev) -> None:
@@ -654,7 +730,7 @@ def per_path(torch, dev) -> int:
         # the JAX tree's descent on this tree with the same draws: random
         # ones, then batches whose top stratum draws u = 1 - 2^-24, which
         # puts its mass point at the total (511 + u rounds up to 512)
-        n_random, n_top = 256, 64
+        n_random, n_top = 128, 64
         dead_random = dead_top = 0
         for i in range(n_random + n_top):
             u = torch.rand(BATCH, generator=g, device=dev)
@@ -748,7 +824,7 @@ def per_path(torch, dev) -> int:
         print("PER path numbers: " + json.dumps(result), flush=True)
         del tr2, r2, rec2
         torch.cuda.empty_cache()
-        breakdown(torch, tr, r, "per")
+        breakdown(torch, tr, r, "per", rounds=1)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches + launches2
@@ -801,13 +877,253 @@ def mode_paths(torch, dev) -> int:
     return total
 
 
-def breakdown(torch, tr, r, label: str) -> None:
+def _pixel_dqn():
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.models import AtariCNN
+
+    return DQN(DQNConfig(model=lambda n: AtariCNN(out_dim=n), lr=1e-4,
+                         double_dqn=True, soft_update_interval=2_000, tau=1.0,
+                         eps_final_step=1_000_000))
+
+
+def _train_pixel(torch, label, env_id, agent, batch, update_chunks, per_sample,
+                 buffer_kw=None, evaluator=None):
+    """``Trainer.train()`` on a pixel game at the gate configs' width: one
+    warmup chunk and ``update_chunks`` update chunks.  Checks the loss, the
+    parameters and the gather's launch count; returns the trainer, its
+    result, the recorder and the launches."""
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig
+
+    upc = STEPS_PER_CHUNK * GAME_ENVS // OPT_INTERVAL
+    rec = _chunk_recorder()
+    tr = Trainer(
+        make(env_id), agent,
+        FrameReplayBuffer(capacity=GAME_CAPACITY, num_envs=GAME_ENVS,
+                          **(buffer_kw or {})),
+        TrainerConfig(num_envs=GAME_ENVS, steps_per_chunk=STEPS_PER_CHUNK,
+                      batch_size=batch, opt_interval=OPT_INTERVAL,
+                      warmup_period=0, max_opts=update_chunks * upc,
+                      eval_interval=update_chunks * upc),
+        recorder=rec, evaluator=evaluator)
+    if tr.updates_per_chunk != upc:
+        fail(f"{label}: updates_per_chunk {tr.updates_per_chunk} != {upc}")
+    before = [p.detach().clone() for p in agent.init(
+        0, tr.vec.observation_space, tr.vec.action_space).params.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    frame_gather.gather_frames.launches = 0
+    r = tr.train(seed=0)
+    torch.cuda.synchronize()
+    launches = frame_gather.gather_frames.launches
+
+    chunks = [c for c in rec.chunks if "opt_steps_per_sec" in c]
+    losses = [c["loss"] for c in chunks]
+    after = list(r.agent_state.params.parameters())
+    if len(chunks) != update_chunks or not all(map(math.isfinite, losses)):
+        fail(f"{label}: update chunks {len(chunks)}, losses {losses}")
+    if r.opt_steps != update_chunks * upc or launches != per_sample * r.opt_steps:
+        fail(f"{label}: {launches} gather launches for {r.opt_steps} updates")
+    if not all(torch.isfinite(p).all() for p in after):
+        fail(f"{label}: non-finite parameters")
+    if all(torch.equal(a, p.detach()) for a, p in zip(before, after)):
+        fail(f"{label}: the parameters did not change")
+    if r.buffer_state.total != (update_chunks + 1) * STEPS_PER_CHUNK:
+        fail(f"{label}: buffer holds {r.buffer_state.total} pushes")
+    obs = r.buffer_state.frames[:, : r.buffer_state.total]
+    if not (obs > 0).any():
+        fail(f"{label}: the ring holds only black frames")
+    result = {
+        "env_steps": r.env_steps, "updates": r.opt_steps,
+        "gather_launches": launches, "final_loss": losses[-1],
+        "env_steps_per_s_chunks": [c["samples_per_sec"] for c in chunks],
+        "updates_per_s_chunks": [c["opt_steps_per_sec"] for c in chunks],
+        "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"{label} path: Trainer.train() {env_id}, {GAME_ENVS} envs, batch "
+          f"{batch}, ring {GAME_ENVS}x{GAME_CAPACITY}, {r.opt_steps} updates in "
+          f"{update_chunks} update chunks; env-steps/s "
+          f"{chunks[-1]['samples_per_sec']:.1f}, updates/s "
+          f"{chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); final loss "
+          f"{losses[-1]:.6g}; frame_gather launches {launches} = "
+          f"{per_sample} x updates", flush=True)
+    return tr, r, rec, launches, result
+
+
+def seaquest_path(torch, dev) -> int:
+    """Phase 10: IQN on Seaquest at the seaquest gate config's width, with
+    one evaluation.  Returns the gather launches."""
+    import functools
+
+    from border_tpu_torch.agents import IQN, IQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.train import Evaluator
+
+    agent = IQN(IQNConfig(
+        psi_fn=functools.partial(AtariCNN, out_dim=0, skip_linear=True),
+        feature_dim=512, n_cos=64, hidden=(512,),
+        sample_percents_pred="uniform8", sample_percents_tgt="uniform8",
+        sample_percents_act="const32", lr=1e-4,
+        soft_update_interval=2_000, tau=1.0, eps_final_step=2_000_000))
+    ev = Evaluator(make("Seaquest-v0", train=False), n_episodes=EVAL_EPISODES,
+                   max_steps=EVAL_MAX_STEPS)
+    t0 = time.perf_counter()
+    tr, r, rec, launches, result = _train_pixel(
+        torch, "seaquest-iqn", "Seaquest-v0", agent, SEAQUEST_BATCH, 2, 1,
+        evaluator=ev)
+    evals = [w_ for w_ in rec.written if "Episode return" in w_]
+    if len(r.eval_history) != 1 or len(evals) != 1 or (
+            {k for k, _ in evals[0]} != EVAL_KEYS):
+        fail(f"seaquest-iqn: evaluations {r.eval_history}")
+    score = r.eval_history[0][1]
+    if not (math.isfinite(score) and score >= 0):
+        fail(f"seaquest-iqn: evaluation score {score}")
+    # quantile values of the expected shape, finite
+    obs = r.buffer_state.frames[:4, 0, :, :, None].expand(-1, -1, -1, 4)
+    taus = torch.rand((4, 8), device=dev)
+    z = r.agent_state.params(obs, taus)
+    if z.shape != (4, 8, 6) or not torch.isfinite(z).all():
+        fail(f"seaquest-iqn: quantile values of shape {tuple(z.shape)}")
+    result.update(eval_score=score, eval_record=dict(evals[0].items()),
+                  seconds=time.perf_counter() - t0)
+    print("seaquest-iqn path numbers: " + json.dumps(result), flush=True)
+    breakdown(torch, tr, r, "seaquest-iqn", rounds=1)
+    del tr, r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def game_paths(torch, dev) -> int:
+    """Phase 11: a warmup chunk and one update chunk of DQN on each of the
+    other three games at its gate config's width, one ring at a time.
+    Returns the gather launches."""
+    total = 0
+    for label, env_id, buffer_kw, per_sample in (
+            ("breakout", "Breakout-v0", {}, 1),
+            ("freeway", "Freeway-v0", dict(n_step=3, gamma=0.99), 2),
+            ("spaceinvaders", "SpaceInvaders-v0", dict(n_step=3), 2)):
+        tr, r, _, launches, result = _train_pixel(
+            torch, label, env_id, _pixel_dqn(), BATCH, 1, per_sample,
+            buffer_kw=buffer_kw)
+        print(f"{label} path numbers: " + json.dumps(result), flush=True)
+        breakdown(torch, tr, r, label, env_only=True)
+        total += launches
+        del tr, r
+        torch.cuda.empty_cache()
+    return total
+
+
+def cartpole_fused_path(torch, dev) -> None:
+    """Phase 12: bench.py's fused CartPole config through Trainer.train()
+    with the flat replay buffer: a warmup chunk and two update chunks."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig
+
+    upc = CART_STEPS * CART_ENVS // CART_OPT_INTERVAL
+    rec = _chunk_recorder()
+    agent = DQN(DQNConfig(double_dqn=True))
+    tr = Trainer(
+        make("CartPole-v1"), agent, ReplayBuffer(capacity=CART_CAPACITY),
+        TrainerConfig(num_envs=CART_ENVS, steps_per_chunk=CART_STEPS,
+                      batch_size=BATCH, opt_interval=CART_OPT_INTERVAL,
+                      warmup_period=0, max_opts=2 * upc),
+        recorder=rec)
+    before = [p.detach().clone() for p in agent.init(
+        0, tr.vec.observation_space, tr.vec.action_space).params.parameters()]
+    r = tr.train(seed=0)
+    torch.cuda.synchronize()
+    chunks = [c for c in rec.chunks if "opt_steps_per_sec" in c]
+    losses = [c["loss"] for c in chunks]
+    after = list(r.agent_state.params.parameters())
+    if (tr.updates_per_chunk != upc or r.opt_steps != 2 * upc
+            or len(chunks) != 2 or not all(map(math.isfinite, losses))):
+        fail(f"cartpole-fused: {r.opt_steps} updates, losses {losses}")
+    if not all(torch.isfinite(p).all() for p in after) or all(
+            torch.equal(a, p.detach()) for a, p in zip(before, after)):
+        fail("cartpole-fused: parameters not finite or unchanged")
+    # the ring wrapped: 3 chunks push 786,432 transitions into 65,536 slots
+    st = r.buffer_state
+    if not (st.size == CART_CAPACITY and st.cursor == (3 * CART_STEPS * CART_ENVS)
+            % CART_CAPACITY and st.data.obs.is_cuda
+            and tuple(st.data.obs.shape) == (CART_CAPACITY, 4)):
+        fail(f"cartpole-fused: buffer size {st.size}, cursor {st.cursor}")
+    q = r.agent_state.params(st.data.obs[:8])
+    if q.shape != (8, 2) or not torch.isfinite(q).all():
+        fail(f"cartpole-fused: Q values of shape {tuple(q.shape)}")
+    result = {
+        "env_steps": r.env_steps, "updates": r.opt_steps, "final_loss": losses[-1],
+        "env_steps_per_s_chunks": [c["samples_per_sec"] for c in chunks],
+        "updates_per_s_chunks": [c["opt_steps_per_sec"] for c in chunks],
+        "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
+    }
+    print(f"cartpole-fused path: Trainer.train() CartPole-v1, {CART_ENVS} envs, "
+          f"batch {BATCH}, flat buffer of {CART_CAPACITY}, {r.opt_steps} updates "
+          f"in 2 update chunks; env-steps/s {chunks[-1]['samples_per_sec']:.1f}, "
+          f"updates/s {chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); final "
+          f"loss {losses[-1]:.6g}", flush=True)
+    print("cartpole-fused path numbers: " + json.dumps(result), flush=True)
+    breakdown(torch, tr, r, "cartpole-fused", rounds=1)
+
+
+def cartpole_learns(torch, dev) -> None:
+    """Phase 13: the cartpole learning-gate config, whole, on one seed."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
+
+    env = make("CartPole-v1")
+    agent = DQN(DQNConfig(hidden=(64, 64), lr=5e-4, gamma=0.99, tau=1.0,
+                          soft_update_interval=500, double_dqn=True,
+                          eps_final_step=10_000))
+    cfg = TrainerConfig(seed=0, **CART_GATE)
+    buffer = ReplayBuffer(capacity=CART_CAPACITY, n_step=3,
+                          stride=CART_GATE["num_envs"])
+    evaluator = Evaluator(env, n_episodes=20, max_steps=500)
+    tr = Trainer(env, agent, buffer, cfg, evaluator=evaluator)
+    t0 = time.perf_counter()
+    r = tr.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    scores = [s for _, s in r.eval_history]
+    n_evals = CART_GATE["max_opts"] // CART_GATE["eval_interval"]
+    if r.opt_steps < CART_GATE["max_opts"] or len(scores) < n_evals or not all(
+            map(math.isfinite, scores)):
+        fail(f"cartpole learns: {r.opt_steps} updates, evaluations {r.eval_history}")
+    result = {
+        "updates": r.opt_steps, "env_steps": r.env_steps, "seconds": seconds,
+        "updates_per_s": r.opt_per_sec, "env_steps_per_s": r.samples_per_sec,
+        "eval_history": r.eval_history, "best_score": r.best_score,
+        "first_score": scores[0], "gate_target": CART_GATE_TARGET,
+        "met_gate_target": r.best_score >= CART_GATE_TARGET,
+    }
+    print(f"cartpole learns: the cartpole gate config, seed 0, {r.opt_steps} "
+          f"updates and {len(scores)} evaluations of 20 episodes in "
+          f"{seconds:.1f} s; best score {r.best_score:.1f} (first "
+          f"{scores[0]:.1f}; the gate's target {CART_GATE_TARGET:.0f} "
+          f"{'met' if result['met_gate_target'] else 'not met'})", flush=True)
+    print("cartpole learns numbers: " + json.dumps(result), flush=True)
+    if r.best_score < CART_MIN_SCORE:
+        fail(f"cartpole learns: best evaluation score {r.best_score} is under "
+             f"{CART_MIN_SCORE}")
+
+
+def breakdown(torch, tr, r, label: str, env_only: bool = False,
+              rounds: int = 2) -> None:
     """The env and update phases of a chunk of ``tr``'s path timed apart (host
     clock, each ending in a device sync), then a shorter stretch of each
     traced with torch.profiler: device busy time, idle share of the traced
-    wall (the profiler's own host cost is in that wall), launches and the
-    kernels with the most device time.  Starts from the main path's final
-    agent and replay state, with the trainer's own buffer (and its modes)."""
+    wall (the profiler's own host cost is in that wall), launches, the
+    kernels with the most device time and the operators with the most host
+    time of their own.  Starts from the main path's final
+    agent and replay state, with the trainer's own buffer (and its modes).
+    ``env_only``: trace the env steps alone (the launches an env step);
+    ``rounds``: how often the two phases are timed apart."""
     from torch.profiler import ProfilerActivity, profile
 
     from border_tpu_torch.train import Trainer, TrainerConfig
@@ -822,8 +1138,9 @@ def breakdown(torch, tr, r, label: str) -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    c = tr.config
     env_s, upd_s = [], []
-    for _ in range(2):
+    for _ in range(0 if env_only else rounds):
         (ag, vec, buf, _, _), t = timed(
             lambda: tr._env_scan(ag, vec, buf, gen, explore=True))
         env_s.append(t)
@@ -831,15 +1148,16 @@ def breakdown(torch, tr, r, label: str) -> None:
         upd_s.append(t)
     out = {"env_phase_s": env_s, "update_phase_s": upd_s,
            "env_share_of_chunk": [e / (e + u) for e, u in zip(env_s, upd_s)],
-           "ms_per_env_step": [1e3 * e / STEPS_PER_CHUNK for e in env_s],
+           "ms_per_env_step": [1e3 * e / c.steps_per_chunk for e in env_s],
            "ms_per_update": [1e3 * u / tr.updates_per_chunk for u in upd_s]}
 
     # a trainer built for the trace lengths: 2 env steps, 32 updates
     trace_steps = 2
     tt = Trainer(tr.env, tr.agent, tr.buffer, TrainerConfig(
-        num_envs=NUM_ENVS, steps_per_chunk=trace_steps, batch_size=BATCH,
-        opt_interval=OPT_INTERVAL, warmup_period=0))
-    for phase, n in (("env", trace_steps), ("update", tt.updates_per_chunk)):
+        num_envs=c.num_envs, steps_per_chunk=trace_steps,
+        batch_size=c.batch_size, opt_interval=c.opt_interval, warmup_period=0))
+    phases = (("env", trace_steps), ("update", tt.updates_per_chunk))
+    for phase, n in phases[:1] if env_only else phases:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             if phase == "env":
@@ -853,6 +1171,10 @@ def breakdown(torch, tr, r, label: str) -> None:
                 and e.self_device_time_total > 0]
         busy_s = sum(e.self_device_time_total for e in rows) / 1e6
         rows.sort(key=lambda e: -e.self_device_time_total)
+        # where the host's time goes: operator rows by their own CPU time
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)
         out[f"{phase}_trace"] = {
             "per": n, "wall_ms_each": 1e3 * wall / n,
             "device_busy_ms_each": 1e3 * busy_s / n,
@@ -861,9 +1183,14 @@ def breakdown(torch, tr, r, label: str) -> None:
             "top_ms_each": [[e.key[:80], e.count / n,
                              e.self_device_time_total / 1e3 / n]
                             for e in rows[:8]],
+            "host_ops_each": sum(e.count for e in host) / n,
+            "top_host_ms_each": [[e.key[:60], e.count / n,
+                                  e.self_cpu_time_total / 1e3 / n]
+                                 for e in host[:8]],
         }
-    if not out["update_trace"]["device_busy_ms_each"] > 0:
-        fail("the profiler saw no device time in the update trace")
+    last = "env_trace" if env_only else "update_trace"
+    if not out[last]["device_busy_ms_each"] > 0:
+        fail(f"the profiler saw no device time in the {last}")
     print(f"breakdown ({label}): " + json.dumps(out), flush=True)
 
 

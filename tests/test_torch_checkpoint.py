@@ -250,3 +250,51 @@ def test_bf16_state_is_saved_as_float32_and_cast_back(tmp_path):
 def test_reconcile_next_cadence_matches_jax(stored, interval, opt_steps):
     want = jax_reconcile(stored, interval, opt_steps)
     assert _reconcile_next_cadence(stored, interval, opt_steps) == want
+
+
+# -- the flat buffer and IQN: their states pack, restore and resume ----------
+
+def _flat_trainer(kind, max_opts, manager=None):
+    """CartPole on the flat buffer: DQN + n-step 3, DQN + PER, or IQN."""
+    from border_tpu_torch.agents import IQN, IQNConfig
+    from border_tpu_torch.replay import ReplayBuffer
+
+    if kind == "iqn":
+        agent = IQN(IQNConfig(feature_dim=16, n_cos=8, hidden=(16,), lr=5e-4,
+                              soft_update_interval=3, tau=1.0,
+                              eps_final_step=500))
+        buf = ReplayBuffer(256, device="cpu")
+    else:
+        agent = DQN(DQNConfig(hidden=(16, 16), lr=5e-4, double_dqn=True,
+                              soft_update_interval=3, tau=1.0,
+                              eps_final_step=500))
+        buf = (ReplayBuffer(256, per=PerConfig(n_opts_final=20), device="cpu")
+               if kind == "per" else
+               ReplayBuffer(256, n_step=3, stride=N, device="cpu"))
+    config = TrainerConfig(
+        num_envs=N, steps_per_chunk=K, batch_size=B, opt_interval=K * N // UPC,
+        warmup_period=0, max_opts=max_opts, eval_interval=UPC, seed=5)
+    ev = Evaluator(make("CartPole-v1"), n_episodes=3, max_steps=30, device="cpu")
+    return Trainer(make("CartPole-v1"), agent, buf, config, evaluator=ev,
+                   checkpoint_manager=manager,
+                   checkpoint_interval=UPC if manager else 0, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["nstep", "per", "iqn"])
+def test_resumed_cartpole_run_equals_uninterrupted_run_bitwise(kind, tmp_path):
+    """5 update chunks ≡ 2, checkpoint, resume 3, on the flat buffer (the
+    ring wraps: 6 chunks push 384 transitions into 256 slots)."""
+    want = _flat_trainer(kind, max_opts=5 * UPC).train()
+    assert want.opt_steps == 5 * UPC and want.buffer_state.size == 256
+    mgr = CheckpointManager(str(tmp_path), device="cpu")
+    _flat_trainer(kind, max_opts=2 * UPC, manager=mgr).train()
+    assert mgr.all_steps() == [UPC, 2 * UPC]
+    got = _flat_trainer(kind, max_opts=5 * UPC).train(resume_from=mgr)
+    _assert_states_equal(got.agent_state, want.agent_state)
+    _assert_states_equal(got.buffer_state, want.buffer_state)
+    assert got.buffer_state.cursor == want.buffer_state.cursor == (6 * K * N) % 256
+    assert got.eval_history == want.eval_history[2:]
+    assert type(got.agent_state).__name__ == (
+        "IQNState" if kind == "iqn" else "DQNState")
+    if kind == "per":
+        assert got.buffer_state.tree.sum_tree[1] > 0

@@ -230,3 +230,206 @@ def test_per_train_checkpoint_resume_on_card(tmp_path):
     assert torch.equal(got.buffer_state.frames, want.buffer_state.frames)
     assert got.buffer_state.total == want.buffer_state.total
     assert got.eval_history == want.eval_history[1:]
+
+
+def _to(x, device):
+    """A dataclass of tensors (nested) copied to ``device``."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _to(getattr(x, f.name), device)
+                          for f in dataclasses.fields(x)})
+    return x.to(device) if torch.is_tensor(x) else x
+
+
+def _assert_close_state(got, want):
+    import dataclasses
+
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name).cpu(), getattr(want, f.name)
+        if w.dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-6, msg=f.name)
+        else:
+            assert torch.equal(g, w), f.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id, n_draws", [
+    ("Breakout-v0", 1), ("Seaquest-v0", 6), ("Freeway-v0", 0),
+    ("SpaceInvaders-v0", 3)])
+def test_game_frames_on_card_match_cpu_path(env_id, n_draws):
+    """40 frames of each new game on the card against the CPU path, from the
+    same state with the same actions and draws: integer and boolean fields
+    and the rendered frames bitwise, floats to 1e-6."""
+    _cuda()
+    from border_tpu_torch.envs import make
+
+    game = make(env_id).game
+    n = 64
+    rng = torch.Generator().manual_seed(0)
+    sc = game.init(rng, n, torch.device("cpu"))
+    sg = _to(sc, "cuda")
+    for t in range(40):
+        a = torch.randint(0, game.num_actions, (n,), generator=rng,
+                          dtype=torch.int32)
+        u = torch.rand((n, n_draws), generator=rng)
+        sc, rc, dc = game.frame_step(None, sc, a, u=u)
+        sg2, rg, dg = game.frame_step(None, sg, a.cuda(), u=u.cuda())
+        _assert_close_state(sg2, sc)
+        assert torch.equal(rg.cpu(), rc) and torch.equal(dg.cpu(), dc)
+        # continue from the CPU state, so a 1e-6 difference cannot grow
+        sg = _to(sc, "cuda")
+        assert torch.equal(game.render(sg).cpu(), game.render(sc)), t
+    assert (game.render(sc) > 0).any()
+
+
+@pytest.mark.cuda
+def test_pixel_grid_and_scalar_divisions_on_card_are_true_divisions():
+    """On a CUDA tensor ``x / 83`` multiplies by the reciprocal; the games
+    divide through ``pixel_grid`` and ``true_div``, which agree bitwise with
+    the CPU's (and the JAX package's) division."""
+    _cuda()
+    from border_tpu_torch.envs.pixel import pixel_grid, true_div
+
+    for denom in (83, 84):
+        for g, c in zip(pixel_grid(torch.device("cuda"), denom),
+                        pixel_grid(torch.device("cpu"), denom)):
+            assert torch.equal(g.cpu(), c)
+    x = torch.rand(4096, generator=torch.Generator().manual_seed(0))
+    for c in (0.03, 0.055, 0.58 / 6, 35.0):
+        assert torch.equal(true_div(x.cuda(), c).cpu(), true_div(x, c)), c
+        assert torch.equal(true_div(x, c), x / c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "nstep", "per"])
+def test_flat_buffer_sample_on_card_matches_cpu_path(kind):
+    """The flat buffer on the card against the CPU path: the same pushes and
+    the same injected draws give the same batch."""
+    _cuda()
+    from border_tpu_torch.replay import PerConfig, ReplayBuffer, Transition
+
+    kw = {"uniform": {}, "nstep": dict(n_step=3, stride=8),
+          "per": dict(per=PerConfig(n_opts_final=100))}[kind]
+    bufs = {d: ReplayBuffer(256, device=d, **kw) for d in ("cpu", "cuda")}
+    g = torch.Generator().manual_seed(1)
+    z = torch.zeros(4)
+    flag = torch.zeros((), dtype=torch.bool)
+    example = Transition(z, torch.zeros((), dtype=torch.int32), z,
+                         torch.zeros(()), flag, flag)
+    states = {d: b.init(_to(example, d)) for d, b in bufs.items()}
+    for _ in range(40):  # 320 transitions: the ring wraps
+        batch = Transition(
+            obs=torch.rand((8, 4), generator=g),
+            act=torch.randint(0, 3, (8,), generator=g, dtype=torch.int32),
+            next_obs=torch.rand((8, 4), generator=g),
+            reward=torch.rand((8,), generator=g),
+            terminated=torch.rand((8,), generator=g) < 0.1,
+            truncated=torch.rand((8,), generator=g) < 0.05)
+        for d, b in bufs.items():
+            b.push(states[d], _to(batch, d))
+    out = {}
+    for d, b in bufs.items():
+        if kind == "per":
+            td = torch.linspace(0.01, 3, 32)
+            b.update_priority(states[d], torch.arange(32).to(d), td.to(d))
+            u = torch.rand(64, generator=torch.Generator().manual_seed(2))
+            out[d] = b.sample_at(states[d], *b.draw_per(
+                states[d], None, 64, n_opts=50, u=u.to(d)))
+        else:
+            lo, hi = (16, 256) if kind == "nstep" else (0, 256)
+            raw = torch.randint(lo, hi, (64,),
+                                generator=torch.Generator().manual_seed(2))
+            out[d] = b.sample_at(states[d], b.draw(states[d], None, 64,
+                                                   raw=raw.to(d)))
+    torch.cuda.synchronize()
+    got, want = out["cuda"], out["cpu"]
+    for name in ("obs", "act", "next_obs", "terminated", "truncated", "ix_sample"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    torch.testing.assert_close(got.reward.cpu(), want.reward, rtol=1e-6, atol=1e-7)
+    if kind == "nstep":
+        torch.testing.assert_close(got.discount.cpu(), want.discount, rtol=1e-6,
+                                   atol=0)
+    if kind == "per":
+        torch.testing.assert_close(got.weight.cpu(), want.weight, rtol=1e-5,
+                                   atol=0)
+    assert states["cuda"].cursor == states["cpu"].cursor == 320 % 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("psi", ["mlp", "cnn"])
+def test_iqn_update_on_card_matches_cpu_path(psi):
+    """One float32 IQN update with the same τ on the card (no TF32) and on
+    the CPU: loss and td errors to rtol 1e-4."""
+    _cuda()
+    import functools
+
+    from border_tpu_torch.agents import IQN, IQNConfig
+    from border_tpu_torch.core import spaces
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.replay import TransitionBatch
+
+    b, n_act = 16, 6
+    g = torch.Generator().manual_seed(3)
+    if psi == "cnn":
+        cfg = IQNConfig(psi_fn=functools.partial(
+            AtariCNN, out_dim=0, skip_linear=True, dtype=torch.float32),
+            feature_dim=32, n_cos=16, hidden=(32,), lr=1e-4)
+        space = spaces.Box(0, 255, (84, 84, 4), torch.uint8)
+        obs = lambda: torch.randint(0, 256, (b, 84, 84, 4), generator=g,  # noqa: E731
+                                    dtype=torch.uint8)
+    else:
+        cfg = IQNConfig(feature_dim=32, n_cos=16, hidden=(32,))
+        space = spaces.Box(-1.0, 1.0, (4,), torch.float32)
+        obs = lambda: torch.rand((b, 4), generator=g)  # noqa: E731
+    agent = IQN(cfg)
+    batch = dict(obs=obs(), act=torch.randint(0, n_act, (b,), generator=g,
+                                              dtype=torch.int32),
+                 next_obs=obs(), reward=torch.randn((b,), generator=g),
+                 terminated=torch.rand((b,), generator=g) < 0.25,
+                 truncated=torch.zeros(b, dtype=torch.bool))
+    taus = (torch.rand((b, 8), generator=g), torch.rand((b, 8), generator=g),
+            ((torch.arange(32.0) + 0.5) / 32).expand(b, 32))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for d in ("cpu", "cuda"):
+            st = agent.init(0, space, spaces.Discrete(n_act), device=d)
+            _, m, td = agent.update(
+                st, TransitionBatch(**{k: v.to(d) for k, v in batch.items()}),
+                taus=tuple(t.to(d) for t in taus))
+            res[d] = (m["loss"].item(), td.cpu(), st)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-4)
+    torch.testing.assert_close(res["cuda"][1], res["cpu"][1], rtol=1e-4, atol=1e-5)
+    assert res["cuda"][2].n_opts == 1
+    assert next(res["cuda"][2].params.parameters()).is_cuda
+
+
+@pytest.mark.cuda
+def test_classic_control_on_card_matches_cpu_path():
+    """20 steps of every classic-control env on the card against the CPU
+    path from the same state and actions: rtol 1e-5 (sin and cos differ in
+    the last place between the two)."""
+    _cuda()
+    from border_tpu_torch.envs import make
+
+    for env_id in ("CartPole-v1", "Pendulum-v1", "MountainCar-v0",
+                   "MountainCarContinuous-v0", "Acrobot-v1"):
+        env = make(env_id)
+        p = env.default_params
+        g = torch.Generator().manual_seed(4)
+        _, sc = env.reset_env(g, 128, p, torch.device("cpu"))
+        space = env.action_space(p)
+        for _ in range(20):
+            a = (torch.randint(0, space.n, (128,), generator=g, dtype=torch.int32)
+                 if hasattr(space, "n") else torch.rand((128, 1), generator=g) * 2 - 1)
+            oc, sc2, rc, tc, uc, _ = env.step_env(None, sc, a, p)
+            og, _, rg, tg, ug, _ = env.step_env(None, _to(sc, "cuda"), a.cuda(), p)
+            torch.testing.assert_close(og.cpu(), oc, rtol=1e-5, atol=1e-5, msg=env_id)
+            torch.testing.assert_close(rg.cpu(), rc, rtol=1e-5, atol=1e-5, msg=env_id)
+            assert torch.equal(ug.cpu(), uc), env_id
+            sc = sc2

@@ -62,7 +62,7 @@ def test_render_bit_exact():
         opp_y=js.opp_y.at[4].set(1.0 - jpong.PADDLE_HALF),
     )
     want = np.asarray(jax.vmap(jpong.Pong().render)(js))
-    got = pong.Pong().render(convert.pong_state(js))
+    got = pong.Pong().render(convert.pong_state(js, device="cpu"))
     assert got.dtype == torch.uint8 and tuple(got.shape) == (N, 84, 84)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want > 0).any()
@@ -76,7 +76,7 @@ def test_frame_step_bit_exact_without_points(seed):
     want, wr, wd = jax.vmap(jpong.Pong().frame_step)(keys, js, jnp.asarray(act))
     gen = torch.Generator().manual_seed(seed)
     got, gr, gd = pong.Pong().frame_step(
-        gen, convert.pong_state(js), torch.from_numpy(act)
+        gen, convert.pong_state(js, device="cpu"), torch.from_numpy(act)
     )
     assert not np.asarray(wr).any()  # no point: the parity case holds
     _assert_pong_equal(got, want)
@@ -97,7 +97,7 @@ def _pixel_states(seed):
         lives=jnp.ones((N,), jnp.int32),
         game_over=jnp.zeros((N,), bool),
     )
-    return jenv, jst, convert.pixel_env_state(jst)
+    return jenv, jst, convert.pixel_env_state(jst, device="cpu")
 
 
 def test_pixel_step_env_bit_exact_without_points():
@@ -148,7 +148,7 @@ def test_vec_env_auto_reset_bookkeeping_on_forced_done():
     wts, wvs = jvec.step(jvs, act)
 
     vec = VecEnv(make("Pong-v0"), N, device="cpu")
-    tvs = convert.vec_env_state(jvs, seed_or_gen=0)
+    tvs = convert.vec_env_state(jvs, seed_or_gen=0, device="cpu")
     gts, gvs = vec.step(tvs, torch.from_numpy(np.array(act)))
 
     np.testing.assert_array_equal(np.asarray(wts.truncated), forced)
@@ -208,5 +208,25 @@ def test_registry_raises_on_unported_env():
         make("NoSuchEnv-v0")
     assert "Unknown env 'NoSuchEnv-v0'" in str(jerr.value)
     assert "Unknown env 'NoSuchEnv-v0'" in str(terr.value)
+    # the Reacher family is registered in the JAX package and not yet here
+    jax_make("Reacher-v0")
+    with pytest.raises(KeyError, match="Unknown env 'Reacher-v0'"):
+        make("Reacher-v0")
     env = make("Pong-v0")
     assert env.observation_space(env.default_params).shape == (84, 84, 4)
+
+
+def test_registry_holds_every_ported_id_of_the_jax_registry():
+    from border_tpu.envs.registry import registry as jax_registry
+    from border_tpu_torch.envs.registry import registry
+
+    reacher = {"Reacher-v0", "ReacherFlat-v0", "ReacherGoal-v0"}
+    assert set(registry) == set(jax_registry) - reacher
+    for name in sorted(registry):
+        env, jenv = make(name), jax_make(name)
+        assert env.name == jenv.name == name
+        space = env.observation_space(env.default_params)
+        jspace = jenv.observation_space(jenv.default_params)
+        assert tuple(space.shape) == tuple(jspace.shape), name
+    for name in ("Breakout-v0", "Seaquest-v0", "Freeway-v0", "SpaceInvaders-v0"):
+        assert make(name, train=False).default_params.clip_reward is False

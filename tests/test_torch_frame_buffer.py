@@ -82,7 +82,7 @@ def _fill_both(steps, use_pallas=False, n=N, per=False, **kw):
 
 
 def _carry(jst):
-    return convert.frame_replay_state(jst, frame_hw=HW, capacity=CAP)
+    return convert.frame_replay_state(jst, frame_hw=HW, capacity=CAP, device="cpu")
 
 
 def _jax_draws(jbuf, jst, key, batch_size):
@@ -130,7 +130,7 @@ def _assert_batches_match(got, want, b):
 
 def test_carried_state_equals_port_state():
     _, jst, tbuf, tst = _fill_both(CAP + 7)  # the ring has wrapped
-    carried = convert.frame_replay_state(jst, frame_hw=HW)
+    carried = convert.frame_replay_state(jst, frame_hw=HW, device="cpu")
     for name in ("frames", "act", "reward", "terminated", "truncated", "age"):
         assert torch.equal(getattr(carried, name), getattr(tst, name)), name
     assert carried.total == tst.total == CAP + 7
@@ -149,7 +149,7 @@ def test_sample_at_injected_draws_matches_jax_sample(steps, use_pallas):
     e, s = _jax_draws(jbuf, jst, key, b)
     lo, hi = tbuf._draw_range(tst)
     assert lo <= int(s.min()) and int(s.max()) < hi
-    got = tbuf.sample_at(convert.frame_replay_state(jst, frame_hw=HW), e, s)
+    got = tbuf.sample_at(convert.frame_replay_state(jst, frame_hw=HW, device="cpu"), e, s)
     _assert_batches_match(got, want, b)
     assert got.weight is None  # uniform: "all ones"
     assert got.obs.shape == (b, *HW, 4)

@@ -5,17 +5,19 @@ import re
 import subprocess
 import sys
 import textwrap
+import types
 from pathlib import Path
 
 import pytest
 import torch
 
-from border_tpu_torch.agents import DQN, DQNConfig
+from border_tpu_torch import convert
+from border_tpu_torch.agents import DQN, IQN, DQNConfig
 from border_tpu_torch.core import VecEnv, spaces
 from border_tpu_torch.envs import make
 from border_tpu_torch.models import AtariCNN
-from border_tpu_torch.replay import FrameReplayBuffer
-from border_tpu_torch.train import Trainer, TrainerConfig
+from border_tpu_torch.replay import FrameReplayBuffer, ReplayBuffer
+from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
 
 
 def test_port_imports_no_jax_and_nothing_of_border_tpu():
@@ -35,7 +37,7 @@ def test_port_imports_no_jax_and_nothing_of_border_tpu():
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25  # every submodule was imported
+    assert int(out.stdout.split()[-1]) >= 36  # every submodule was imported
 
 
 def test_port_sources_name_no_jax_module_in_an_import():
@@ -45,7 +47,12 @@ def test_port_sources_name_no_jax_module_in_an_import():
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "border_tpu_torch").rglob("*.py")) + [
         root / "chip_smoke.py"]
-    assert len(files) >= 30
+    assert len(files) >= 41
+    for new in ("models/mlp.py", "models/iqn.py", "agents/iqn.py",
+                "envs/classic_control.py", "envs/breakout.py",
+                "envs/seaquest.py", "envs/freeway.py",
+                "envs/space_invaders.py"):
+        assert root / "border_tpu_torch" / new in files
     banned = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|border_tpu)(?:[.\s]|$)",
         re.MULTILINE)
@@ -75,6 +82,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(env, agent, FrameReplayBuffer(8, 2, device="cpu"),
                 TrainerConfig(num_envs=2))
+    # the entry points added with the flat-replay and IQN paths
+    for env_id in ("CartPole-v1", "Seaquest-v0", "SpaceInvaders-v0"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            VecEnv(make(env_id), 2)
+    cart = make("CartPole-v1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReplayBuffer(capacity=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DQN().init(0, cart.observation_space(None), spaces.Discrete(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IQN().init(0, cart.observation_space(None), spaces.Discrete(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cart, DQN(), ReplayBuffer(8, device="cpu"),
+                TrainerConfig(num_envs=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Evaluator(cart)
+    assert ReplayBuffer(8, device="cpu").device == torch.device("cpu")
+    # the converters of JAX state put their result on the GPU too
+    tree = types.SimpleNamespace(sum_tree=[0.0, 1.0], min_tree=[0.0, 1.0],
+                                 max_priority=1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.sum_tree_state(tree)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.cartpole_state(types.SimpleNamespace(
+            x=[0.0], x_dot=[0.0], theta=[0.0], theta_dot=[0.0], t=[0]))
+    assert convert.sum_tree_state(tree, device="cpu").sum_tree.device.type == "cpu"
     # asked for explicitly, the CPU works
     assert VecEnv(env, 2, device="cpu").device == torch.device("cpu")
     assert FrameReplayBuffer(8, 2, device="cpu").init().frames.device.type == "cpu"

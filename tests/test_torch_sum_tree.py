@@ -68,7 +68,7 @@ def test_update_totals_and_mins_match(dups):
     np.testing.assert_allclose(tt.min_priority(ts).item(),
                                float(jt.min_priority(js)), rtol=RTOL)
     # the carried JAX state equals the port's own
-    _assert_trees_close(convert.sum_tree_state(js), js)
+    _assert_trees_close(convert.sum_tree_state(js, device="cpu"), js)
     # internal nodes are the sums and mins of their children
     s, m = ts.sum_tree, ts.min_tree
     torch.testing.assert_close(s[1:CAP], s[2::2] + s[3::2])

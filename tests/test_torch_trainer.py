@@ -71,13 +71,13 @@ def _trainers():
 def _carry(jtr, ttr, ja, jv, jb):
     ta = convert.dqn_state(ttr.agent, ja, ttr.vec.observation_space,
                            ttr.vec.action_space, device="cpu")
-    tv = convert.vec_env_state(jv, seed_or_gen=0)
-    tb = convert.frame_replay_state(jb)
+    tv = convert.vec_env_state(jv, seed_or_gen=0, device="cpu")
+    tb = convert.frame_replay_state(jb, device="cpu")
     return ta, tv, tb
 
 
 def _assert_buffers_equal(tb, jb):
-    carried = convert.frame_replay_state(jb)
+    carried = convert.frame_replay_state(jb, device="cpu")
     for name in ("frames", "act", "reward", "terminated", "truncated", "age"):
         assert torch.equal(getattr(tb, name), getattr(carried, name)), name
     assert tb.total == carried.total
@@ -378,3 +378,122 @@ def test_tensorboard_recorder_writes_a_readable_event_file(tmp_path):
     assert images[0].tag == "q" and images[0].image.width == 3
     histos = [v for e in events for v in e.summary.value if v.HasField("histo")]
     assert histos[0].tag == "w" and histos[0].histo.num == 5.0
+
+
+# -- the flat-buffer path and the learning-gate configs ----------------------
+
+def test_init_states_sizes_a_flat_buffer_from_the_spaces():
+    """``init_states`` hands the flat buffer an example transition built from
+    the env's spaces, as the JAX trainer does; the frame buffer ignores it."""
+    from border_tpu.replay import ReplayBuffer as JaxReplayBuffer
+    from border_tpu_torch.replay import ReplayBuffer
+
+    cfg = dict(num_envs=N, steps_per_chunk=K, batch_size=B, opt_interval=N,
+               warmup_period=0)
+    for env_id in ("CartPole-v1", "Acrobot-v1", "MountainCar-v0"):
+        jtr = JaxTrainer(jax_make(env_id), JaxDQN(JaxDQNConfig()),
+                         JaxReplayBuffer(64), JaxTrainerConfig(**cfg))
+        ttr = Trainer(make(env_id), DQN(DQNConfig()),
+                      ReplayBuffer(64, device="cpu"), TrainerConfig(**cfg),
+                      device="cpu")
+        _, _, jb = jtr.init_states(jax.random.PRNGKey(0), jax.random.PRNGKey(1))
+        ta, tv, tb = ttr.init_states(0, 1)
+        for name in ("obs", "act", "next_obs", "reward", "terminated", "truncated"):
+            got, want = getattr(tb.data, name), getattr(jb.data, name)
+            assert tuple(got.shape) == tuple(want.shape), (env_id, name)
+            assert str(got.dtype).split(".")[1] == str(want.dtype), (env_id, name)
+        assert tb.size == tb.cursor == 0 and tb.tree is None
+        assert tuple(tv.obs.shape) == (N, *jtr.vec.observation_space.shape)
+        assert ta.params.layers[0].in_features == tv.obs.shape[1]
+    # the frame buffer takes the example and keeps its own shapes
+    _, ttr = _trainers()
+    assert tuple(ttr.init_states(0, 1)[2].frames.shape) == (N, CAP, 84, 84)
+
+
+def _gate_config(name, width):
+    """The ``benchmarks/learning.py`` config ``name`` written with the port's
+    classes argument for argument, at ``width`` envs and a short run."""
+    import functools
+
+    from border_tpu_torch.agents import IQN, IQNConfig
+    from border_tpu_torch.replay import ReplayBuffer
+
+    cnn_dqn = dict(model=lambda n: AtariCNN(out_dim=n), lr=1e-4, double_dqn=True,
+                   soft_update_interval=2_000, tau=1.0, eps_final_step=1_000_000)
+    short = dict(max_opts=2, warmup_period=0, opt_interval=width * 4,
+                 batch_size=8, num_envs=width, steps_per_chunk=8,
+                 eval_interval=2, seed=0)
+    pixel_eval = dict(n_episodes=2, max_steps=6, device="cpu")
+    if name == "cartpole":
+        env = make("CartPole-v1")
+        agent = DQN(DQNConfig(hidden=(64, 64), lr=5e-4, gamma=0.99, tau=1.0,
+                              soft_update_interval=500, double_dqn=True,
+                              eps_final_step=10_000))
+        buffer = ReplayBuffer(capacity=65_536, n_step=3, stride=width,
+                              device="cpu")
+        evaluator = Evaluator(env, n_episodes=20, max_steps=500, device="cpu")
+        short["warmup_period"] = 8
+    elif name == "seaquest":
+        env = make("Seaquest-v0")
+        agent = IQN(IQNConfig(
+            psi_fn=functools.partial(AtariCNN, out_dim=0, skip_linear=True),
+            feature_dim=512, n_cos=64, hidden=(512,),
+            sample_percents_pred="uniform8", sample_percents_tgt="uniform8",
+            sample_percents_act="const32", lr=1e-4,
+            soft_update_interval=2_000, tau=1.0, eps_final_step=2_000_000))
+        buffer = FrameReplayBuffer(capacity=16, num_envs=width, device="cpu")
+        evaluator = Evaluator(make("Seaquest-v0", train=False), **pixel_eval)
+    else:
+        env_id = {"breakout": "Breakout-v0", "freeway": "Freeway-v0",
+                  "spaceinvaders": "SpaceInvaders-v0"}[name]
+        env = make(env_id)
+        kw = dict(cnn_dqn, gamma=0.99) if name == "freeway" else cnn_dqn
+        agent = DQN(DQNConfig(**kw))
+        buf_kw = {"breakout": {}, "freeway": dict(n_step=3, gamma=0.99),
+                  "spaceinvaders": dict(n_step=3)}[name]
+        buffer = FrameReplayBuffer(capacity=16, num_envs=width, device="cpu",
+                                   **buf_kw)
+        evaluator = Evaluator(make(env_id, train=False), **pixel_eval)
+    return Trainer(env, agent, buffer, TrainerConfig(**short),
+                   evaluator=evaluator, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "name", ["cartpole", "seaquest", "breakout", "freeway", "spaceinvaders"])
+def test_learning_gate_configs_construct_and_train(name, monkeypatch):
+    """Each new gate config builds a Trainer and runs two updates and an
+    evaluation on the CPU at reduced width; the pixel ones sample through
+    ``gather_frames`` (once a sample, twice with n-step 3)."""
+    calls = []
+    monkeypatch.setattr(
+        "border_tpu_torch.replay.frame_buffer.gather_frames",
+        lambda frames, idx: calls.append(tuple(idx.shape))
+        or frame_gather.gather_frames_ref(frames, idx))
+    tr = _gate_config(name, width=4)
+    r = tr.train()
+    assert r.opt_steps == 2 and len(r.eval_history) == 1
+    assert math.isfinite(r.eval_history[0][1])
+    assert all(torch.isfinite(p).all() for p in r.agent_state.params.parameters())
+    want = {"cartpole": [], "seaquest": [(8, 5)] * 2, "breakout": [(8, 5)] * 2,
+            "freeway": [(8, 4)] * 4, "spaceinvaders": [(8, 4)] * 4}[name]
+    assert calls == want
+
+
+def test_cartpole_learns_on_the_cpu_at_reduced_size():
+    """The ``cartpole`` gate config cut to 2,000 updates: the evaluation
+    score climbs well past a random policy's (about 20)."""
+    from border_tpu_torch.replay import ReplayBuffer
+
+    env = make("CartPole-v1")
+    agent = DQN(DQNConfig(hidden=(64, 64), lr=5e-4, gamma=0.99, tau=1.0,
+                          soft_update_interval=500, double_dqn=True,
+                          eps_final_step=10_000))
+    cfg = TrainerConfig(max_opts=2_000, warmup_period=1_000, opt_interval=16,
+                        batch_size=256, num_envs=32, steps_per_chunk=32,
+                        eval_interval=500, seed=0)
+    tr = Trainer(env, agent, ReplayBuffer(65_536, n_step=3, stride=32, device="cpu"),
+                 cfg, evaluator=Evaluator(env, n_episodes=5, max_steps=500,
+                                          device="cpu"), device="cpu")
+    r = tr.train()
+    assert r.opt_steps >= 2_000 and len(r.eval_history) == 4
+    assert r.best_score >= 60.0, r.eval_history
