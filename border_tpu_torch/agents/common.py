@@ -7,10 +7,17 @@ target module's parameters in place.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+import copy
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
+
+from border_tpu_torch.models.mlp import EnsembleMLP
+
+# a learning rate: a constant, or a schedule of the optimizer's step count
+LearningRate = Union[float, Callable[[int], float]]
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -48,8 +55,11 @@ def quantile_huber_loss(
 
 @torch.no_grad()
 def polyak_update(tau: float, online: nn.Module, target: nn.Module) -> None:
-    """τ-polyak soft update, in place: tgt ← τ·online + (1−τ)·tgt
-    (the same two products and one sum as the JAX version)."""
+    """τ-polyak soft update, in place: tgt ← τ·online + (1−τ)·tgt, three
+    ``_foreach`` launches over all of the module's tensors (a stacked
+    critic ensemble's ``[n, ...]`` ones too).  The same two products and
+    one sum as the JAX version: ``_foreach_lerp_`` would launch once, but
+    computes ``tgt + τ·(online − tgt)``, which rounds another way."""
     tgt = list(target.parameters())
     scaled = torch._foreach_mul(list(online.parameters()), tau)
     torch._foreach_mul_(tgt, 1.0 - tau)
@@ -68,13 +78,83 @@ def periodic_polyak(
         polyak_update(tau, online, target)
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule``, in float32 as optax computes it:
+    ``init·((1−α)·½(1 + cos(π·min(k, T)/T)) + α)`` at step count k."""
+    if not decay_steps > 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        k = f32(min(count, decay_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * k / f32(decay_steps)))
+        return float(f32(init_value) * (f32(1 - alpha) * cosine + f32(alpha)))
+
+    return schedule
+
+
+def lr_at(lr: LearningRate, count: int) -> float:
+    """The learning rate of the update that follows ``count`` updates: optax
+    evaluates a schedule at the step count before its increment."""
+    return lr(count) if callable(lr) else lr
+
+
+def minimize(opt: torch.optim.Optimizer, loss: torch.Tensor,
+             lr: Optional[LearningRate] = None, count: int = 0,
+             inputs: Optional[List[torch.Tensor]] = None) -> None:
+    """One step of ``opt`` on ``loss``: zero the grads, backpropagate (into
+    ``inputs`` alone when given), step.  A schedule ``lr`` sets the rate
+    ``lr(count)`` first; ``count`` is a host int, so that costs no sync."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward(inputs=inputs)
+    if callable(lr):
+        for group in opt.param_groups:
+            group["lr"] = lr(count)
+    opt.step()
+
+
+def param_generator(seed_or_gen) -> torch.Generator:
+    """The CPU generator parameters are drawn from: an int seeds a new one,
+    so a seed gives the same network on every device."""
+    if isinstance(seed_or_gen, torch.Generator):
+        return seed_or_gen
+    return torch.Generator().manual_seed(int(seed_or_gen))
+
+
+def critic_input(obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """obs ‖ act, the input of a Q-critic."""
+    return torch.cat([obs, act.reshape(act.shape[0], -1)], dim=-1)
+
+
+def new_critics(gen: torch.Generator, n: int, in_dim: int,
+                hidden: Sequence[int], device) -> Tuple[EnsembleMLP, EnsembleMLP]:
+    """An ensemble of ``n`` Q-critics and a frozen copy as its target."""
+    critic = EnsembleMLP(n, in_dim, 1, tuple(hidden))
+    critic.reset_parameters(gen)
+    critic = critic.to(device)
+    target = copy.deepcopy(critic)
+    target.requires_grad_(False)
+    return critic, target
+
+
+def weighted_mean(weight: Optional[torch.Tensor],
+                  per: torch.Tensor) -> torch.Tensor:
+    """``mean(weight · per)``, ``weight`` [B] broadcast over the last axis
+    (None: all ones)."""
+    return (per if weight is None else weight * per).mean()
+
+
 def make_optimizer(
-    name: str = "adam", lr: float = 1e-3, **kw
+    name: str = "adam", lr: LearningRate = 1e-3, **kw
 ) -> Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]:
     """Factory ``params -> torch.optim.Optimizer`` computing what the
     matching ``optax`` transform computes: ``adam`` is b1 0.9, b2 0.999,
     eps 1e-8 outside the sqrt, no eps_root, bias-corrected; ``adamw`` adds
-    optax's default decoupled weight decay 1e-4; ``sgd`` is plain SGD."""
+    optax's default decoupled weight decay 1e-4; ``sgd`` is plain SGD.
+    ``lr`` may be a schedule; the optimizer then starts at ``lr(0)`` and
+    :func:`minimize` sets each step's rate."""
+    lr = lr_at(lr, 0)
     if name == "adam":
         return lambda p: torch.optim.Adam(
             p, lr=lr, betas=(kw.get("b1", 0.9), kw.get("b2", 0.999)),

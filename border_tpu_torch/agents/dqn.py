@@ -30,6 +30,7 @@ from border_tpu_torch.agents.common import (
     bootstrap_discount,
     clip_by_global_norm_,
     make_optimizer,
+    param_generator,
     periodic_polyak,
 )
 from border_tpu_torch.core import spaces
@@ -105,8 +106,7 @@ class DQN(Agent):
         CPU ``torch.Generator``), so a seed gives the same network on every
         device, then moved to ``device`` (``None`` = the GPU)."""
         device = resolve_device(device)
-        gen = (seed_or_gen if isinstance(seed_or_gen, torch.Generator)
-               else torch.Generator().manual_seed(int(seed_or_gen)))
+        gen = param_generator(seed_or_gen)
         c = self.config
         if c.model is not None:
             net = c.model(act_space.n)

@@ -30,6 +30,7 @@ from torch import nn
 from border_tpu_torch.agents.common import (
     bootstrap_discount,
     make_optimizer,
+    param_generator,
     periodic_polyak,
     quantile_huber_loss,
 )
@@ -110,8 +111,7 @@ class IQN(Agent):
         to ``device`` (``None`` = the GPU), as in :meth:`DQN.init`."""
         c = self.config
         device = resolve_device(device)
-        gen = (seed_or_gen if isinstance(seed_or_gen, torch.Generator)
-               else torch.Generator().manual_seed(int(seed_or_gen)))
+        gen = param_generator(seed_or_gen)
         net = IQNNet(
             in_dim=obs_space.flat_dim,
             out_dim=act_space.n,

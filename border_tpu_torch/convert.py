@@ -15,6 +15,10 @@ dicts, which ``load_state_dict`` copies onto the module's device).  The module i
   the heads); ``IQNNet``'s ψ MLP comes first and the f-net's numbers go on
   from there, or, with a CNN ψ, the f-net is ``Dense_0``, ``Dense_1`` beside
   the named ``psi``, ``psi_proj`` and ``phi``.
+- a critic ensemble's params, stacked by ``jax.vmap`` (a leading ``[n]`` on
+  every leaf), are already :class:`EnsembleMLP`'s layout.
+- SAC, BC, AWAC and IQL states: every network, ``log_alpha`` and the
+  counters; the optimizers are fresh, and so must the JAX ones be.
 - every game's state, ``PixelEnvState`` and ``VecEnvState`` → the port's env
   state, field by field (both sides are batched ``[N, ...]``).
 - ``ReplayBufferState`` → the port's flat buffer state (``cursor`` and
@@ -33,19 +37,25 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from border_tpu_torch.agents.awac import AWAC, AWACState
+from border_tpu_torch.agents.bc import BC, BCState
 from border_tpu_torch.agents.dqn import DQN, DQNState
+from border_tpu_torch.agents.iql import IQL, IQLState
 from border_tpu_torch.agents.iqn import IQN, IQNState
+from border_tpu_torch.agents.sac import SAC, SACState
 from border_tpu_torch.core.env import VecEnvState
 from border_tpu_torch.envs import classic_control as cc
 from border_tpu_torch.envs.breakout import BreakoutState
 from border_tpu_torch.envs.freeway import FreewayState
 from border_tpu_torch.envs.pixel import PixelEnvState
 from border_tpu_torch.envs.pong import PongState
+from border_tpu_torch.envs.reacher import ReacherState
 from border_tpu_torch.envs.seaquest import SeaquestState
 from border_tpu_torch.envs.space_invaders import SpaceInvadersState
 from border_tpu_torch.models.cnn import AtariCNN
 from border_tpu_torch.models.iqn import IQNNet
-from border_tpu_torch.replay.buffer import ReplayBufferState, Transition
+from border_tpu_torch.models.mlp import EnsembleMLP
+from border_tpu_torch.replay.buffer import ReplayBufferState, Transition, map_obs
 from border_tpu_torch.replay.frame_buffer import FrameReplayState
 from border_tpu_torch.replay.sum_tree import SumTreeState
 from border_tpu_torch.utils.device import DeviceLike, as_generator, resolve_device
@@ -150,12 +160,28 @@ def iqn_net_state_dict(net: IQNNet,
     return out
 
 
+def ensemble_state_dict(net: EnsembleMLP,
+                        flax_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Stacked flax ``MLP`` params (``[n, in, out]`` kernels, ``[n, out]``
+    biases, from ``jax.vmap`` over ``init``) → a state dict for ``net``."""
+    p = flax_params.get("params", flax_params)
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(len(net.weights)):
+        out[f"weights.{i}"] = torch.from_numpy(
+            np.asarray(p[f"Dense_{i}"]["kernel"], np.float32).copy())
+        out[f"biases.{i}"] = torch.from_numpy(
+            np.asarray(p[f"Dense_{i}"]["bias"], np.float32).copy())
+    return out
+
+
 def net_state_dict(net, flax_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The converter that fits the port's module ``net``."""
     if isinstance(net, AtariCNN):
         return atari_cnn_state_dict(flax_params)
     if isinstance(net, IQNNet):
         return iqn_net_state_dict(net, flax_params)
+    if isinstance(net, EnsembleMLP):
+        return ensemble_state_dict(net, flax_params)
     return mlp_state_dict(net, flax_params)
 
 
@@ -165,45 +191,88 @@ def load_atari_cnn(net: AtariCNN, flax_params: Dict[str, Any]) -> AtariCNN:
     return net
 
 
-def dqn_state(agent: DQN, jax_state, obs_space, act_space,
-              device: DeviceLike = None) -> DQNState:
-    """A ``DQNState`` with the JAX state's online and target params and
-    counters, and a fresh optimizer (the JAX optimizer state must be fresh
-    too: its moments are not carried over)."""
-    device = resolve_device(device)
-    count = _adam_count(jax_state.opt_state)
+def _check_fresh(*opt_states) -> None:
+    count = max(_adam_count(o) for o in opt_states)
     if count:
         raise ValueError(
             f"optimizer state has taken {count} steps; only a fresh one "
             f"carries over"
         )
+
+
+# the networks of each agent state, by field name
+_NETS = {
+    DQNState: ("params", "target_params"),
+    IQNState: ("params", "target_params"),
+    SACState: ("actor_params", "critic_params", "critic_target_params"),
+    AWACState: ("actor_params", "critic_params", "critic_target_params"),
+    IQLState: ("actor_params", "critic_params", "critic_target_params",
+               "value_params"),
+    BCState: ("params",),
+}
+
+
+def _agent_state(agent, jax_state, obs_space, act_space, device, *opt_names):
+    """A fresh state of ``agent`` with the JAX state's networks and
+    counters; the JAX optimizers named must be fresh."""
+    device = resolve_device(device)
+    _check_fresh(*(getattr(jax_state, n) for n in opt_names))
     st = agent.init(0, obs_space, act_space, device=device)
-    return _load_agent_state(st, jax_state, net_state_dict)
-
-
-def _load_agent_state(st, jax_state, to_state_dict):
-    """Copy the JAX state's two parameter sets and counters into ``st``."""
-    st.params.load_state_dict(to_state_dict(st.params, jax_state.params))
-    st.target_params.load_state_dict(
-        to_state_dict(st.target_params, jax_state.target_params))
+    for name in _NETS[type(st)]:
+        net = getattr(st, name)
+        net.load_state_dict(net_state_dict(net, getattr(jax_state, name)))
     st.n_opts = int(np.asarray(jax_state.n_opts))
     st.n_samples = int(np.asarray(jax_state.n_samples))
     return st
+
+
+def dqn_state(agent: DQN, jax_state, obs_space, act_space,
+              device: DeviceLike = None) -> DQNState:
+    """A ``DQNState`` with the JAX state's online and target params and
+    counters, and a fresh optimizer (the JAX optimizer state must be fresh
+    too: its moments are not carried over)."""
+    return _agent_state(agent, jax_state, obs_space, act_space, device,
+                        "opt_state")
 
 
 def iqn_state(agent: IQN, jax_state, obs_space, act_space,
               device: DeviceLike = None) -> IQNState:
     """An ``IQNState`` with the JAX state's online and target params and
     counters, and a fresh optimizer (as :func:`dqn_state`)."""
-    device = resolve_device(device)
-    count = _adam_count(jax_state.opt_state)
-    if count:
-        raise ValueError(
-            f"optimizer state has taken {count} steps; only a fresh one "
-            f"carries over"
-        )
-    st = agent.init(0, obs_space, act_space, device=device)
-    return _load_agent_state(st, jax_state, iqn_net_state_dict)
+    return _agent_state(agent, jax_state, obs_space, act_space, device,
+                        "opt_state")
+
+
+def sac_state(agent: SAC, jax_state, obs_space, act_space,
+              device: DeviceLike = None) -> SACState:
+    """A ``SACState`` with the JAX state's actor, critics, target critics,
+    ``log_alpha`` and counters, and fresh optimizers."""
+    st = _agent_state(agent, jax_state, obs_space, act_space, device,
+                      "actor_opt", "critic_opt", "alpha_opt")
+    with torch.no_grad():
+        st.log_alpha.fill_(float(np.asarray(jax_state.log_alpha)))
+    return st
+
+
+def bc_state(agent: BC, jax_state, obs_space, act_space,
+             device: DeviceLike = None) -> BCState:
+    """A ``BCState`` with the JAX state's network and counters."""
+    return _agent_state(agent, jax_state, obs_space, act_space, device,
+                        "opt_state")
+
+
+def awac_state(agent: AWAC, jax_state, obs_space, act_space,
+               device: DeviceLike = None) -> AWACState:
+    """An ``AWACState`` with the JAX state's networks and counters."""
+    return _agent_state(agent, jax_state, obs_space, act_space, device,
+                        "actor_opt", "critic_opt")
+
+
+def iql_state(agent: IQL, jax_state, obs_space, act_space,
+              device: DeviceLike = None) -> IQLState:
+    """An ``IQLState`` with the JAX state's networks and counters."""
+    return _agent_state(agent, jax_state, obs_space, act_space, device,
+                        "actor_opt", "critic_opt", "value_opt")
 
 
 def _adam_count(opt_state) -> int:
@@ -219,7 +288,7 @@ def _copy_fields(cls, js, device):
     """A batched JAX state → the port's dataclass ``cls`` of the same field
     names, each field a tensor of the same dtype."""
     return cls(**{
-        f.name: _t(getattr(js, f.name), device)
+        f.name: map_obs(lambda x: _t(x, device), getattr(js, f.name))
         for f in dataclasses.fields(cls)
     })
 
@@ -243,6 +312,7 @@ cartpole_state = _state_converter(cc.CartPoleState)
 pendulum_state = _state_converter(cc.PendulumState)
 mountain_car_state = _state_converter(cc.MountainCarState)
 acrobot_state = _state_converter(cc.AcrobotState)
+reacher_state = _state_converter(ReacherState)
 
 _ENV_STATES = {
     "PongState": pong_state, "BreakoutState": breakout_state,
@@ -250,6 +320,7 @@ _ENV_STATES = {
     "SpaceInvadersState": space_invaders_state,
     "CartPoleState": cartpole_state, "PendulumState": pendulum_state,
     "MountainCarState": mountain_car_state, "AcrobotState": acrobot_state,
+    "ReacherState": reacher_state,
 }
 
 
@@ -279,7 +350,7 @@ def vec_env_state(js, seed_or_gen, device: DeviceLike = None) -> VecEnvState:
     device = resolve_device(device)
     return VecEnvState(
         env_state=env_state(js.env_state, device),
-        obs=_t(js.obs, device),
+        obs=map_obs(lambda x: _t(x, device), js.obs),
         episode_return=_t(js.episode_return, device, torch.float32),
         episode_length=_t(js.episode_length, device, torch.int32),
         last_return=_t(js.last_return, device, torch.float32),

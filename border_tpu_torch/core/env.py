@@ -69,14 +69,22 @@ def scale_uniform(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 
 def where_state(mask: torch.Tensor, a: Any, b: Any) -> Any:
-    """Per-instance select over a (nested) dataclass of ``[N, ...]``
+    """Per-instance select over a (nested) dataclass or dict of ``[N, ...]``
     tensors: ``a`` where ``mask`` [N] is true, else ``b``."""
     if dataclasses.is_dataclass(a):
         return type(a)(**{
             f.name: where_state(mask, getattr(a, f.name), getattr(b, f.name))
             for f in dataclasses.fields(a)
         })
+    if isinstance(a, dict):
+        return {k: where_state(mask, a[k], b[k]) for k in a}
     return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def first_leaf(obs: Any) -> torch.Tensor:
+    """An observation's tensor, or the first entry of a dict observation
+    (for its batch size and device)."""
+    return next(iter(obs.values())) if isinstance(obs, dict) else obs
 
 
 class Environment:
@@ -113,7 +121,8 @@ class Environment:
     ) -> Tuple[Any, EnvState]:
         """State to continue from after a ``done`` flag: a fresh reset by
         default; pixel envs keep the game going after a life loss."""
-        return self.reset_env(gen, obs.shape[0], params, obs.device)
+        x = first_leaf(obs)
+        return self.reset_env(gen, x.shape[0], params, x.device)
 
 
 @dataclasses.dataclass

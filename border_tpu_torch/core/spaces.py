@@ -1,13 +1,13 @@
 """Observation/action space descriptions (≙ border_tpu/core/spaces.py).
 
-Static metadata objects; ``zero()`` mints a torch tensor used to size
-buffers and networks before the first step.
+Static metadata objects; ``zero()`` mints a torch tensor (a dict of them
+for :class:`Dict`) used to size buffers and networks before the first step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Dict as DictT, Tuple
 
 import numpy as np
 import torch
@@ -69,3 +69,39 @@ class Box(Space):
             and (x >= float(np.min(self.low)) - 1e-6).all()
             and (x <= float(np.max(self.high)) + 1e-6).all()
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Dict(Space):
+    """Dict-structured space (goal-reaching dict observations).  The
+    entries are stored sorted by key, as ``(key, space)`` pairs, so the
+    default key order of a flattened observation is the sorted one."""
+
+    spaces: Any  # a mapping name -> Space; stored as sorted (k, v) pairs
+
+    def __post_init__(self):
+        if isinstance(self.spaces, dict):
+            object.__setattr__(self, "spaces", tuple(sorted(self.spaces.items())))
+
+    def as_dict(self) -> DictT[str, Space]:
+        return dict(self.spaces)
+
+    @property
+    def shape(self):  # type: ignore[override]
+        return {k: v.shape for k, v in self.spaces}
+
+    @property
+    def dtype(self):  # type: ignore[override]
+        return {k: v.dtype for k, v in self.spaces}
+
+    def zero(self, device=None):
+        return {k: s.zero(device) for k, s in self.spaces}
+
+    def contains(self, x) -> bool:
+        d = dict(self.spaces)
+        return isinstance(x, dict) and set(x) == set(d) and all(
+            d[k].contains(v) for k, v in x.items())
+
+    @property
+    def flat_dim(self) -> int:
+        return sum(s.flat_dim for _, s in self.spaces)

@@ -1,5 +1,6 @@
 """Batched on-device environments (≙ border_tpu/envs): the classic-control
-family and the five pixel games under the DQN pixel wrapper."""
+family, the five pixel games under the DQN pixel wrapper, and the
+dict-observation Reacher."""
 
 from border_tpu_torch.envs.classic_control import (  # noqa: F401
     Acrobot,
@@ -17,4 +18,5 @@ from border_tpu_torch.envs.space_invaders import (  # noqa: F401
     SpaceInvaders,
     make_space_invaders,
 )
+from border_tpu_torch.envs.reacher import FlattenDictWrapper, Reacher  # noqa: F401
 from border_tpu_torch.envs.registry import make, register, registry  # noqa: F401

@@ -1,8 +1,7 @@
 """Environment registry — string id → Environment factory
 (≙ border_tpu/envs/registry.py).
 
-Every id of the JAX registry that the port implements is registered; the
-Reacher ids are not yet, and raise the same ``KeyError`` as an unknown id.
+Every id of the JAX registry is registered.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from border_tpu_torch.envs import classic_control as cc
 from border_tpu_torch.envs.breakout import make_breakout
 from border_tpu_torch.envs.freeway import make_freeway
 from border_tpu_torch.envs.pong import make_pong
+from border_tpu_torch.envs.reacher import FlattenDictWrapper, Reacher
 from border_tpu_torch.envs.seaquest import make_seaquest
 from border_tpu_torch.envs.space_invaders import make_space_invaders
 
@@ -42,3 +42,11 @@ register("Breakout-v0", make_breakout)
 register("Seaquest-v0", make_seaquest)
 register("Freeway-v0", make_freeway)
 register("SpaceInvaders-v0", make_space_invaders)
+register("Reacher-v0", Reacher)
+register("ReacherFlat-v0", lambda: FlattenDictWrapper(Reacher()))
+# the goal-conditioned flat view (observation ‖ desired_goal, the key order
+# of GoalDictConverter's default): the recovered env of dict-obs corpora
+register(
+    "ReacherGoal-v0",
+    lambda: FlattenDictWrapper(Reacher(), keys=("observation", "desired_goal")),
+)

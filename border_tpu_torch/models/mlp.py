@@ -5,6 +5,10 @@ modules here take ``in_dim`` (``obs_space.flat_dim``).  ``dtype`` is the
 compute type: parameters stay float32 and are cast at use, the output is
 float32.  ``reset_parameters`` draws flax's default initialisation:
 lecun-normal weights and zero biases.
+
+:class:`EnsembleMLP` holds n MLPs of one shape as stacked parameters and
+computes them all in one batched matmul a layer, the counterpart of
+``jax.vmap`` over stacked flax params (the actor-critic agents' critics).
 """
 
 from __future__ import annotations
@@ -123,3 +127,39 @@ class GaussianHeadMLP(_Trunk):
         mean = dense(self.mean, x, self.dtype).float()
         log_std = dense(self.log_std, x, self.dtype).float()
         return mean, log_std.clamp(self.log_std_min, self.log_std_max)
+
+
+class EnsembleMLP(nn.Module):
+    """``n`` MLPs of the same widths: layer i holds ``weights[i]`` of shape
+    ``[n, in, out]`` (flax's kernel layout, a leading member axis) and
+    ``biases[i]`` of ``[n, out]``, and is one ``torch.baddbmm``.  Maps
+    ``[B, in_dim]``, the same input for every member, to
+    ``[n, B, out_dim]``; float32."""
+
+    def __init__(self, n: int, in_dim: int, out_dim: int,
+                 hidden: Sequence[int] = (64, 64), activation: str = "relu"):
+        super().__init__()
+        self.n = n
+        self.act = ACTIVATIONS[activation]
+        widths = [in_dim, *hidden, out_dim]
+        self.weights = nn.ParameterList(
+            nn.Parameter(torch.empty(n, a, b))
+            for a, b in zip(widths[:-1], widths[1:]))
+        self.biases = nn.ParameterList(
+            nn.Parameter(torch.zeros(n, b)) for b in widths[1:])
+
+    def reset_parameters(self, gen: Optional[torch.Generator] = None) -> None:
+        """flax's ``Dense`` initialisation for every member."""
+        with torch.no_grad():
+            for w, b in zip(self.weights, self.biases):
+                _lecun_normal_(w, w.shape[1], gen)
+                b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.expand(self.n, *x.shape)
+        last = len(self.weights) - 1
+        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
+            x = torch.baddbmm(b[:, None, :], x, w)
+            if i < last:
+                x = self.act(x)
+        return x

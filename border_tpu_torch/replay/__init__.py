@@ -8,6 +8,7 @@ from border_tpu_torch.replay.buffer import (  # noqa: F401
     ReplayBufferState,
     Transition,
     TransitionBatch,
+    map_obs,
 )
 from border_tpu_torch.replay.frame_buffer import (  # noqa: F401
     FrameReplayBuffer,

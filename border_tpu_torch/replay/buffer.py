@@ -2,8 +2,9 @@
 transition containers (≙ border_tpu/replay/buffer.py).
 
 - storage is a ``Transition`` of ``[capacity, ...]`` device tensors,
-  allocated from one example transition (tensor observations; the JAX
-  buffer's dict observations come with the first env that makes them),
+  allocated from one example transition; a dict observation (the goal
+  envs') is a dict of such tensors, where the JAX buffer maps over a
+  pytree,
 - ``push`` writes a whole batch of transitions at the ring cursor (one push
   per vectorised env step),
 - ``sample`` is a batched random read: plain tensor indexing, as the JAX
@@ -28,6 +29,13 @@ import torch
 
 from border_tpu_torch.replay.sum_tree import SumTree, SumTreeState
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def map_obs(fn, x):
+    """``fn`` applied to a tensor, or to each entry of a dict of them."""
+    if isinstance(x, dict):
+        return {k: fn(v) for k, v in x.items()}
+    return fn(x)
 
 
 @dataclasses.dataclass
@@ -145,7 +153,7 @@ class ReplayBuffer:
                                device=self.device)
 
         data = Transition(**{
-            f.name: zeros(getattr(example, f.name))
+            f.name: map_obs(zeros, getattr(example, f.name))
             for f in dataclasses.fields(Transition)
         })
         return ReplayBufferState(
@@ -166,9 +174,16 @@ class ReplayBuffer:
             idx = torch.arange(c, c + n, device=self.device) % cap
         where = idx if wraps else slice(c, c + n)
 
+        def write(store, new):
+            store[where] = new.to(store.dtype)
+
         for f in dataclasses.fields(Transition):
-            store = getattr(state.data, f.name)
-            store[where] = getattr(batch, f.name).to(store.dtype)
+            store, new = getattr(state.data, f.name), getattr(batch, f.name)
+            if isinstance(store, dict):
+                for k in store:
+                    write(store[k], new[k])
+            else:
+                write(store, new)
         if self.tree is not None:
             # fresh transitions enter at the running max priority
             self.tree.update(state.tree, idx, state.tree.max_priority.expand(n))
@@ -240,8 +255,9 @@ class ReplayBuffer:
             return self._nstep_batch(state, idx, weight)
         data = state.data
         return TransitionBatch(
-            obs=data.obs[idx], act=data.act[idx],
-            next_obs=data.next_obs[idx], reward=data.reward[idx],
+            obs=map_obs(lambda x: x[idx], data.obs), act=data.act[idx],
+            next_obs=map_obs(lambda x: x[idx], data.next_obs),
+            reward=data.reward[idx],
             terminated=data.terminated[idx], truncated=data.truncated[idx],
             weight=weight, ix_sample=idx.to(torch.int32),
         )
@@ -267,9 +283,9 @@ class ReplayBuffer:
         m = continuing.sum(1).to(torch.int32)  # ≥ 1 (k=0 valid)
         p_last = (idx + (m - 1) * self.stride) % cap
         return TransitionBatch(
-            obs=data.obs[idx],
+            obs=map_obs(lambda x: x[idx], data.obs),
             act=data.act[idx],
-            next_obs=data.next_obs[p_last],
+            next_obs=map_obs(lambda x: x[p_last], data.next_obs),
             reward=reward_n,
             terminated=data.terminated[p_last],
             truncated=data.truncated[p_last],

@@ -33,7 +33,7 @@ from border_tpu_torch.core.env import Environment, VecEnv
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.record.record import Record
 from border_tpu_torch.record.recorder import NullRecorder, Recorder
-from border_tpu_torch.replay.buffer import Transition
+from border_tpu_torch.replay.buffer import Transition, map_obs
 from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -58,7 +58,7 @@ def _slice_batch(batch, lo: int, hi: int):
     """Rows ``[lo, hi)`` of every field of a sampled batch."""
     return type(batch)(**{
         f.name: None if getattr(batch, f.name) is None
-        else getattr(batch, f.name)[lo:hi]
+        else map_obs(lambda x: x[lo:hi], getattr(batch, f.name))
         for f in dataclasses.fields(batch)
     })
 

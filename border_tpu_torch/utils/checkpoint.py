@@ -96,7 +96,8 @@ def unpack_state(template: Any, saved: Any, device: DeviceLike = "cpu") -> Any:
                 f"checkpoint tensor {tuple(saved.shape)} does not fit the "
                 f"template's {tuple(template.shape)}"
             )
-        template.copy_(saved)
+        with torch.no_grad():  # a leaf that requires grad (SAC's log α)
+            template.copy_(saved)
         return template
     if isinstance(template, (bool, int, float)):
         return type(template)(saved)

@@ -25,7 +25,9 @@ Phases, one line each (any failure exits non-zero with no result line):
    (bytes moved over 3.35 TB/s);
 5. the port against its own CPU path on small inputs (env steps bitwise, a
    float32 DQN update and a float32 IQN update with the same quantile
-   fractions to 1e-4), and the sum tree at 2^19 leaves: the same
+   fractions to 1e-4; Reacher steps to 1e-6; float32 SAC, AWAC and IQL
+   updates at their gate widths with the same injected normal draws to
+   1e-4), and the sum tree at 2^19 leaves: the same
    update batches (duplicate indices among them) and the same injected
    uniforms on the card and on the CPU give the same sampled leaves and,
    to 1e-6 relative, the same totals and weights;
@@ -63,7 +65,21 @@ Phases, one line each (any failure exits non-zero with no result line):
     updates a chunk): one warmup chunk and two update chunks, then phase 7;
 13. the whole cartpole learning-gate config (12,000 updates, 128 envs,
     n-step 3, an evaluation of 20 episodes every 500 updates), one seed:
-    the run fails under a best evaluation score of 100.
+    the run fails under a best evaluation score of 100;
+14. SAC on Pendulum at the pendulum gate config's width (128 envs, 256
+    updates a chunk, batch 128, actor and two critics 128x128, auto
+    entropy coefficient): one warmup chunk, two update chunks and one
+    evaluation (10 episodes, 200 steps), then phase 7 for this path;
+15. the whole bc_offline learning-gate config (BC 256x256, cosine learning
+    rate over the run's 12,000 updates, batch 256) over the committed
+    fetch-reacher-medium-v0 corpus (25,000 transitions, dict observations
+    flattened), a normalized evaluation of 200 episodes x 50 steps every
+    2,000 updates: the run fails under a best normalized score of 50
+    (the gate's target is 76);
+16, 17. the awac_offline and iql_offline configs at full width over the
+    same corpus, to their first evaluation at 2,000 updates.
+    Each offline phase ends with one chunk of 250 updates timed and 32
+    traced.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -105,6 +121,23 @@ CART_GATE = dict(max_opts=12_000, warmup_period=1_000, opt_interval=16,
 CART_GATE_TARGET, CART_MIN_SCORE = 200.0, 100.0
 EVAL_KEYS = {"Episode return", "Episode return min", "Episode return max",
              "Episode length", "Episodes truncated"}
+# the pendulum learning-gate config (SAC, Gaussian actor, two critics):
+# 128 envs, 32 steps and 256 updates a chunk, batch 128
+PEND_GATE = dict(warmup_period=1_000, opt_interval=16, batch_size=128,
+                 num_envs=128, steps_per_chunk=32)
+PEND_CAPACITY, PEND_UPDATE_CHUNKS = 65_536, 2
+# the offline learning-gate configs over the committed fetch-reacher corpus
+# (the full goal-dict layout, 8 features), evaluated on the Reacher
+OFFLINE_CORPUS = "fetch-reacher-medium-v0"
+OFFLINE_KEYS = ("observation", "desired_goal", "achieved_goal")
+OFFLINE_GATE_OPTS = {"bc_offline": 12_000, "awac_offline": 8_000,
+                     "iql_offline": 12_000}
+OFFLINE_BATCH, OFFLINE_EVAL_INTERVAL, OFFLINE_UPDATES_PER_CHUNK = 256, 2_000, 250
+OFFLINE_EVAL_EPISODES, OFFLINE_EVAL_STEPS = 200, 50
+# awac_offline and iql_offline run to their first evaluation
+OFFLINE_CUT = 2_000
+# bc_offline runs whole and fails under BC_MIN_SCORE (normalized)
+BC_TARGET, BC_MIN_SCORE = 76.0, 50.0
 
 
 def fail(msg: str) -> None:
@@ -240,6 +273,7 @@ def main() -> None:
 
     # -- 5. the port against its CPU path on small inputs ------------------
     reference_checks(torch, dev)
+    actor_critic_checks(torch, dev)
     sum_tree_check(torch, dev)
 
     # -- 6. the uniform path --------------------------------------------------
@@ -265,6 +299,15 @@ def main() -> None:
     # -- 12, 13. the flat-buffer path: CartPole fused, then a run that learns ----
     cartpole_fused_path(torch, dev)
     cartpole_learns(torch, dev)
+
+    # -- 14. SAC on Pendulum --------------------------------------------------------
+    pendulum_sac_path(torch, dev)
+
+    # -- 15-17. the offline family over the committed corpus ----------------------
+    offline_path(torch, dev, "bc_offline", OFFLINE_GATE_OPTS["bc_offline"],
+                 min_score=BC_MIN_SCORE)
+    offline_path(torch, dev, "awac_offline", OFFLINE_CUT)
+    offline_path(torch, dev, "iql_offline", OFFLINE_CUT)
 
     kernels = [{
         "name": "frame_gather",
@@ -513,12 +556,90 @@ def sum_tree_check(torch, dev) -> None:
           f"weights within 1e-6 relative", flush=True)
 
 
+def actor_critic_checks(torch, dev) -> None:
+    """Reacher steps, and float32 SAC, AWAC and IQL updates at their gate
+    configs' widths with the same injected draws, on the card and on the
+    port's CPU path."""
+    from border_tpu_torch.agents import AWAC, IQL, SAC, AWACConfig, IQLConfig, SACConfig
+    from border_tpu_torch.core.env import VecEnv
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import TransitionBatch
+
+    cpu = torch.device("cpu")
+    # 45 steps: short of the 50-step episode end, whose resets draw from
+    # each device's own generator
+    env = make("Reacher-v0")
+    vg, vc = VecEnv(env, 256, device=dev), VecEnv(env, 256, device=cpu)
+    sg = vg.reset(0)
+    sc = to_device(sg, cpu, torch)
+    rng = torch.Generator().manual_seed(5)
+    worst = 0.0
+    for _ in range(45):
+        a = torch.rand((256, 2), generator=rng) * 2.4 - 1.2
+        tg, sg = vg.step(sg, a.to(dev))
+        tc, sc = vc.step(sc, a)
+        for got, want in [(tg.reward, tc.reward)] + [
+                (sg.obs[k], sc.obs[k]) for k in sc.obs]:
+            worst = max(worst, (got.cpu() - want).abs().max().item())
+            if not torch.allclose(got.cpu(), want, rtol=1e-6, atol=1e-6):
+                fail(f"Reacher on the card differs from the CPU path by {worst}")
+    print(f"reference check: 45 Reacher steps x 256 envs within 1e-6 of the CPU "
+          f"path (max abs diff {worst:.3g})", flush=True)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reacher = make("ReacherFlat-v0")
+        pend = make("Pendulum-v1")
+        cases = (
+            ("SAC", SAC(SACConfig(actor_hidden=(128, 128), critic_hidden=(128, 128),
+                                  n_critics=2)), pend, 128, True),
+            ("AWAC", AWAC(AWACConfig(actor_hidden=(256, 256),
+                                     critic_hidden=(256, 256), lambda_=10.0)),
+             reacher, 256, True),
+            ("IQL", IQL(IQLConfig()), reacher, 256, False))
+        for label, agent, e, b, draws in cases:
+            p = e.default_params
+            obs_space, act_space = e.observation_space(p), e.action_space(p)
+            od, ad = obs_space.flat_dim, act_space.flat_dim
+            g = torch.Generator().manual_seed(6)
+            batch = dict(
+                obs=torch.randn((b, od), generator=g),
+                act=torch.rand((b, ad), generator=g) * 2 - 1,
+                next_obs=torch.randn((b, od), generator=g),
+                reward=torch.randn(b, generator=g),
+                terminated=torch.rand(b, generator=g) < 0.1,
+                truncated=torch.zeros(b, dtype=torch.bool))
+            noise = tuple(torch.randn((b, ad), generator=g) for _ in range(2))
+            out = {}
+            for d in (cpu, dev):
+                st = agent.init(0, obs_space, act_space, device=d)
+                kw = {"noise": tuple(z.to(d) for z in noise)} if draws else {}
+                _, m, td = agent.update(
+                    st, TransitionBatch(**{k: v.to(d) for k, v in batch.items()}), **kw)
+                out[d] = ({k: float(v) for k, v in m.items()}, td.cpu())
+            torch.cuda.synchronize()
+            (mg, tdg), (mc, tdc) = out[dev], out[cpu]
+            bad = [k for k in mc if not math.isclose(mg[k], mc[k], rel_tol=1e-4,
+                                                      abs_tol=1e-6)]
+            if bad or not torch.allclose(tdg, tdc, rtol=1e-4, atol=1e-5):
+                fail(f"{label} update on the card differs from the CPU path: "
+                     f"{bad} {mg} vs {mc}; td by {(tdg - tdc).abs().max().item()}")
+            print(f"reference check: float32 {label} update (batch {b}"
+                  f"{', injected normal draws' if draws else ''}) within rtol 1e-4 "
+                  f"of the CPU path: " + json.dumps(mg), flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def to_device(x, device, torch):
-    """A copy of a (nested) dataclass of tensors on ``device``; a CUDA
-    generator becomes a CPU one (its draws are not compared)."""
+    """A copy of a (nested) dataclass or dict of tensors on ``device``; a
+    CUDA generator becomes a CPU one (its draws are not compared)."""
     if dataclasses.is_dataclass(x):
         return type(x)(**{f.name: to_device(getattr(x, f.name), device, torch)
                           for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: to_device(v, device, torch) for k, v in x.items()}
     if isinstance(x, torch.Generator):
         return torch.Generator(device=device).manual_seed(0)
     return x.to(device)
@@ -1113,19 +1234,213 @@ def cartpole_learns(torch, dev) -> None:
              f"{CART_MIN_SCORE}")
 
 
+def pendulum_sac_path(torch, dev) -> None:
+    """Phase 14: SAC on Pendulum at the pendulum gate config's width: one
+    warmup chunk, two update chunks of 256 updates and one evaluation of
+    10 episodes x 200 steps, then phase 7 for this path."""
+    from border_tpu_torch.agents import SAC, SACConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
+
+    upc = PEND_GATE["steps_per_chunk"] * PEND_GATE["num_envs"] // PEND_GATE["opt_interval"]
+    max_opts = PEND_UPDATE_CHUNKS * upc
+    env = make("Pendulum-v1")
+    agent = SAC(SACConfig(actor_hidden=(128, 128), critic_hidden=(128, 128),
+                          n_critics=2, actor_lr=3e-4, critic_lr=3e-4,
+                          ent_coef_mode="auto"))
+    rec = _chunk_recorder()
+    tr = Trainer(env, agent, ReplayBuffer(capacity=PEND_CAPACITY),
+                 TrainerConfig(max_opts=max_opts, eval_interval=max_opts, seed=0,
+                               **PEND_GATE),
+                 recorder=rec, evaluator=Evaluator(env, n_episodes=EVAL_EPISODES,
+                                                   max_steps=EVAL_MAX_STEPS))
+    before = [p.detach().clone() for p in agent.init(
+        0, tr.vec.observation_space, tr.vec.action_space).actor_params.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = tr.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    chunks = [c for c in rec.chunks if "opt_steps_per_sec" in c]
+    keys = ("loss_critic", "loss_actor", "loss_alpha", "ent_coef", "entropy", "q_mean")
+    if (tr.updates_per_chunk != upc or r.opt_steps != max_opts
+            or len(chunks) != PEND_UPDATE_CHUNKS or len(rec.chunks) != PEND_UPDATE_CHUNKS + 1
+            or not all(math.isfinite(c[k]) for c in chunks for k in keys)):
+        fail(f"pendulum-sac: {r.opt_steps} updates, chunks {[dict(c.items()) for c in chunks]}")
+    st = r.agent_state
+    after = list(st.actor_params.parameters())
+    nets = (st.actor_params, st.critic_params, st.critic_target_params)
+    if not (all(p.is_cuda and torch.isfinite(p).all() for n in nets for p in n.parameters())
+            and st.log_alpha.is_cuda and r.buffer_state.data.obs.is_cuda):
+        fail("pendulum-sac: a network or the buffer is not finite or not on the card")
+    if all(torch.equal(a, p.detach()) for a, p in zip(before, after)):
+        fail("pendulum-sac: the actor did not change")
+    evals = [w for w in rec.written if "Episode return" in w]
+    if len(r.eval_history) != 1 or len(evals) != 1 or {k for k, _ in evals[0]} != EVAL_KEYS:
+        fail(f"pendulum-sac: evaluations {r.eval_history}")
+    score = r.eval_history[0][1]
+    if not (math.isfinite(score) and -200 * 16.3 <= score <= 0):
+        fail(f"pendulum-sac: evaluation score {score}")
+    result = {
+        "env_steps": r.env_steps, "updates": r.opt_steps, "seconds": seconds,
+        "final_metrics": {k: chunks[-1][k] for k in keys},
+        "env_steps_per_s_chunks": [c["samples_per_sec"] for c in chunks],
+        "updates_per_s_chunks": [c["opt_steps_per_sec"] for c in chunks],
+        "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
+        "eval_score": score, "eval_record": dict(evals[0].items()),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"pendulum-sac path: Trainer.train() Pendulum-v1, SAC 128x128, "
+          f"{PEND_GATE['num_envs']} envs, batch {PEND_GATE['batch_size']}, "
+          f"{r.opt_steps} updates in {PEND_UPDATE_CHUNKS} update chunks; "
+          f"env-steps/s {chunks[-1]['samples_per_sec']:.1f}, updates/s "
+          f"{chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); evaluation "
+          f"score {score:.1f}", flush=True)
+    print("pendulum-sac path numbers: " + json.dumps(result), flush=True)
+    breakdown(torch, tr, r, "pendulum-sac", rounds=1)
+
+
+def offline_config(name: str, device, max_opts=None):
+    """The offline learning-gate config ``name`` (benchmarks/learning.py:
+    bc_offline, awac_offline, iql_offline) written with the port's classes:
+    (dataset, agent, TrainerConfig, evaluator).  ``max_opts`` cuts the run;
+    BC's cosine learning-rate horizon is the run's own ``max_opts`` (the JAX
+    gate hard-codes 12,000)."""
+    from border_tpu_torch.agents import AWAC, BC, IQL, AWACConfig, BCConfig, IQLConfig
+    from border_tpu_torch.agents.common import cosine_decay_schedule
+    from border_tpu_torch.data import GoalDictConverter, MinariDataset, NormalizedEvaluator
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.envs.reacher import FlattenDictWrapper
+    from border_tpu_torch.train import TrainerConfig
+
+    max_opts = max_opts or OFFLINE_GATE_OPTS[name]
+    md = MinariDataset.load(OFFLINE_CORPUS,
+                            converter=GoalDictConverter(keys=OFFLINE_KEYS))
+    if name == "bc_offline":
+        agent = BC(BCConfig(hidden=(256, 256),
+                            lr=cosine_decay_schedule(1e-3, max_opts)))
+    elif name == "awac_offline":
+        agent = AWAC(AWACConfig(actor_hidden=(256, 256), critic_hidden=(256, 256),
+                                lambda_=10.0))
+    else:
+        agent = IQL(IQLConfig())
+    evaluator = NormalizedEvaluator(
+        FlattenDictWrapper(make("Reacher-v0"), keys=OFFLINE_KEYS),
+        n_episodes=OFFLINE_EVAL_EPISODES, max_steps=OFFLINE_EVAL_STEPS,
+        ref_min=md.ref_min, ref_max=md.ref_max, device=device)
+    cfg = TrainerConfig(max_opts=max_opts, batch_size=OFFLINE_BATCH,
+                        eval_interval=OFFLINE_EVAL_INTERVAL,
+                        flush_record_interval=10**9, seed=0)
+    return md, agent, cfg, evaluator
+
+
+def offline_path(torch, dev, name: str, max_opts: int, min_score=None) -> None:
+    """Phases 15-17: the offline gate config ``name`` at full width over the
+    whole committed corpus, ``max_opts`` updates with an evaluation of 200
+    episodes x 50 steps every 2,000; then one chunk of 250 updates timed
+    and 32 updates traced.  ``min_score``: the normalized best score the run
+    must reach."""
+    from border_tpu_torch.data import normalized_score
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import OfflineTrainer
+
+    for ext in (".npz", ".json"):
+        path = os.path.join(ROOT, "artifacts", "datasets", OFFLINE_CORPUS + ext)
+        if not os.path.isfile(path):
+            fail(f"{name}: the corpus file {path} is missing")
+    md, agent, cfg, evaluator = offline_config(name, dev, max_opts)
+    buffer = ReplayBuffer(capacity=md.get_num_transitions())
+    buf_state = md.create_replay_buffer(buffer)
+    if not (buf_state.size == 25_000 and buf_state.data.obs.is_cuda
+            and tuple(buf_state.data.obs.shape) == (25_000, 8)):
+        fail(f"{name}: buffer of {buf_state.size} transitions, obs "
+             f"{tuple(buf_state.data.obs.shape)} on {buf_state.data.obs.device}")
+    vec = evaluator.vec
+    agent_state = agent.init(0, vec.observation_space, vec.action_space)
+    rec = _chunk_recorder()
+    tr = OfflineTrainer(agent, buffer, cfg, recorder=rec, evaluator=evaluator,
+                        updates_per_chunk=OFFLINE_UPDATES_PER_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = tr.train(agent_state, buf_state, seed=1000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_chunks = max_opts // OFFLINE_UPDATES_PER_CHUNK
+    metric_keys = [k for k, _ in rec.chunks[0] if k != "opt_steps_per_sec"]
+    if r.opt_steps != max_opts or len(rec.chunks) != n_chunks or not all(
+            math.isfinite(c[k]) for c in rec.chunks for k in metric_keys):
+        fail(f"{name}: {r.opt_steps} updates, {len(rec.chunks)} chunks, "
+             f"metrics {dict(rec.chunks[-1].items())}")
+    nets = [v for v in vars(r.agent_state).values() if isinstance(v, torch.nn.Module)]
+    if not all(p.is_cuda and torch.isfinite(p).all() for n in nets for p in n.parameters()):
+        fail(f"{name}: a network is not finite or not on the card")
+    evals = [w for w in rec.written if "Episode return" in w]
+    want_keys = EVAL_KEYS | {"Normalized score"}
+    if len(evals) != max_opts // OFFLINE_EVAL_INTERVAL or len(r.eval_history) != len(
+            evals) or any({k for k, _ in w} != want_keys for w in evals):
+        fail(f"{name}: evaluation records {[dict(w.items()) for w in evals]}")
+    scores = [w["Normalized score"] for w in evals]
+    best = normalized_score(r.best_score, md.ref_min, md.ref_max)
+    if not all(map(math.isfinite, scores)):
+        fail(f"{name}: normalized scores {scores}")
+    ups = [c["opt_steps_per_sec"] for c in rec.chunks]
+    result = {
+        "updates": r.opt_steps, "seconds": seconds,
+        "updates_per_s_median_chunk": statistics.median(ups),
+        "updates_per_s_min_max_chunk": [min(ups), max(ups)],
+        "final_metrics": {k: rec.chunks[-1][k] for k in metric_keys},
+        "normalized_scores": scores, "best_normalized": best,
+        "eval_record": dict(evals[-1].items()),
+        "behavior_normalized": md.behavior_normalized_score(),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if name == "bc_offline":
+        result.update(target=BC_TARGET, floor=min_score,
+                      met_target=best >= BC_TARGET,
+                      lr_at_last_update=agent.config.lr(r.opt_steps - 1))
+    print(f"{name} path: OfflineTrainer.train() over {OFFLINE_CORPUS} "
+          f"({buf_state.size} transitions), {type(agent).__name__} at the gate "
+          f"width, batch {OFFLINE_BATCH}, {r.opt_steps} updates in {seconds:.1f} s "
+          f"({statistics.median(ups):.1f} updates/s, median chunk); normalized "
+          f"scores {[round(x, 2) for x in scores]}, best {best:.2f}"
+          + (f" (the gate's target {BC_TARGET:.0f}, floor {min_score:.0f})"
+             if min_score is not None else ""), flush=True)
+    print(f"{name} path numbers: " + json.dumps(result), flush=True)
+    if min_score is not None and not best >= min_score:
+        fail(f"{name}: best normalized score {best} is under {min_score}")
+
+    # one chunk timed, 32 updates traced, from the run's final state
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ag, buf = r.agent_state, r.buffer_state
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ag, buf, _ = tr._chunk(ag, buf, gen)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t
+    tr.updates_per_chunk = 32
+
+    def updates():
+        tr._chunk(ag, buf, gen)
+
+    out = {"chunk_s": chunk_s,
+           "ms_per_update": 1e3 * chunk_s / OFFLINE_UPDATES_PER_CHUNK,
+           "update_trace": trace(torch, updates, 32)}
+    if not out["update_trace"]["device_busy_ms_each"] > 0:
+        fail(f"{name}: the profiler saw no device time in the update trace")
+    print(f"breakdown ({name}): " + json.dumps(out), flush=True)
+    del tr, r, buf_state
+    torch.cuda.empty_cache()
+
+
 def breakdown(torch, tr, r, label: str, env_only: bool = False,
               rounds: int = 2) -> None:
     """The env and update phases of a chunk of ``tr``'s path timed apart (host
     clock, each ending in a device sync), then a shorter stretch of each
-    traced with torch.profiler: device busy time, idle share of the traced
-    wall (the profiler's own host cost is in that wall), launches, the
-    kernels with the most device time and the operators with the most host
-    time of their own.  Starts from the main path's final
+    traced (:func:`trace`).  Starts from the main path's final
     agent and replay state, with the trainer's own buffer (and its modes).
     ``env_only``: trace the env steps alone (the launches an env step);
     ``rounds``: how often the two phases are timed apart."""
-    from torch.profiler import ProfilerActivity, profile
-
     from border_tpu_torch.train import Trainer, TrainerConfig
 
     gen = torch.Generator(device=tr.device).manual_seed(3)
@@ -1156,42 +1471,66 @@ def breakdown(torch, tr, r, label: str, env_only: bool = False,
     tt = Trainer(tr.env, tr.agent, tr.buffer, TrainerConfig(
         num_envs=c.num_envs, steps_per_chunk=trace_steps,
         batch_size=c.batch_size, opt_interval=c.opt_interval, warmup_period=0))
-    phases = (("env", trace_steps), ("update", tt.updates_per_chunk))
-    for phase, n in phases[:1] if env_only else phases:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            if phase == "env":
-                (ag, vec, buf, _, _), wall = timed(
-                    lambda: tt._env_scan(ag, vec, buf, gen, explore=True))
-            else:
-                (ag, buf, _), wall = timed(lambda: tt._update_scan(ag, buf, gen))
-        # kernel rows only: an operator's row repeats its kernels' time
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        busy_s = sum(e.self_device_time_total for e in rows) / 1e6
-        rows.sort(key=lambda e: -e.self_device_time_total)
-        # where the host's time goes: operator rows by their own CPU time
-        host = sorted((e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CPU),
-                      key=lambda e: -e.self_cpu_time_total)
-        out[f"{phase}_trace"] = {
-            "per": n, "wall_ms_each": 1e3 * wall / n,
-            "device_busy_ms_each": 1e3 * busy_s / n,
-            "device_idle_share": 1.0 - busy_s / wall,
-            "launches_each": sum(e.count for e in rows) / n,
-            "top_ms_each": [[e.key[:80], e.count / n,
-                             e.self_device_time_total / 1e3 / n]
-                            for e in rows[:8]],
-            "host_ops_each": sum(e.count for e in host) / n,
-            "top_host_ms_each": [[e.key[:60], e.count / n,
-                                  e.self_cpu_time_total / 1e3 / n]
-                                 for e in host[:8]],
-        }
+
+    def env_phase():
+        nonlocal ag, vec, buf
+        ag, vec, buf, _, _ = tt._env_scan(ag, vec, buf, gen, explore=True)
+
+    def update_phase():
+        nonlocal ag, buf
+        ag, buf, _ = tt._update_scan(ag, buf, gen)
+
+    phases = (("env", trace_steps, env_phase),
+              ("update", tt.updates_per_chunk, update_phase))
+    for phase, n, run in phases[:1] if env_only else phases:
+        out[f"{phase}_trace"] = trace(torch, run, n)
     last = "env_trace" if env_only else "update_trace"
     if not out[last]["device_busy_ms_each"] > 0:
         fail(f"the profiler saw no device time in the {last}")
     print(f"breakdown ({label}): " + json.dumps(out), flush=True)
+
+
+def trace(torch, run, n: int) -> dict:
+    """``run()`` (``n`` env steps or updates) traced with torch.profiler:
+    device busy time, idle share of the traced wall (the profiler's own
+    host cost is in that wall), launches, the kernels with the most device
+    time and the operators with the most host time of their own, each per
+    step or update."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel rows only: an operator's row repeats its kernels' time, and a
+    # record_function's device row (the optimizer's step) spans its kernels
+    # and the gaps between them
+    annotations = {e.name for e in prof.events()
+                   if getattr(e, "is_user_annotation", False)}
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0 and e.key not in annotations]
+    busy_s = sum(e.self_device_time_total for e in rows) / 1e6
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    # where the host's time goes: operator rows by their own CPU time
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    return {
+        "per": n, "wall_ms_each": 1e3 * wall / n,
+        "device_busy_ms_each": 1e3 * busy_s / n,
+        "device_idle_share": 1.0 - busy_s / wall,
+        "launches_each": sum(e.count for e in rows) / n,
+        "top_ms_each": [[e.key[:80], e.count / n,
+                         e.self_device_time_total / 1e3 / n]
+                        for e in rows[:8]],
+        "host_ops_each": sum(e.count for e in host) / n,
+        "top_host_ms_each": [[e.key[:60], e.count / n,
+                              e.self_cpu_time_total / 1e3 / n]
+                             for e in host[:8]],
+    }
 
 
 if __name__ == "__main__":

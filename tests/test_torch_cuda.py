@@ -1,7 +1,8 @@
 """Tests that need the card: the port's CUDA kernels against their plain
-PyTorch versions, bitwise; the sum tree on the card against the CPU path;
-a small prioritized train-checkpoint-resume on the card.  They skip without
-a CUDA device.
+PyTorch versions, bitwise; the sum tree, the games, the classic-control
+envs and the Reacher, and the DQN, IQN, SAC, AWAC and IQL updates on the
+card against the CPU path; a small prioritized train-checkpoint-resume on
+the card.  They skip without a CUDA device.
 
 This file imports no JAX, so on a machine without it (the GPU machine) it
 runs without the repo's JAX test harness:
@@ -433,3 +434,76 @@ def test_classic_control_on_card_matches_cpu_path():
             torch.testing.assert_close(rg.cpu(), rc, rtol=1e-5, atol=1e-5, msg=env_id)
             assert torch.equal(ug.cpu(), uc), env_id
             sc = sc2
+
+
+@pytest.mark.cuda
+def test_reacher_on_card_matches_cpu_path():
+    """45 Reacher steps (short of the 50-step episode end) on the card
+    against the CPU path from the same state and actions: observations and
+    rewards to 1e-6."""
+    _cuda()
+    from border_tpu_torch.envs import make
+
+    env = make("Reacher-v0")
+    p = env.default_params
+    g = torch.Generator().manual_seed(5)
+    _, sc = env.reset_env(g, 256, p, torch.device("cpu"))
+    sg = _to(sc, "cuda")
+    for _ in range(45):
+        a = torch.rand((256, 2), generator=g) * 2.4 - 1.2
+        oc, sc, rc, tc, uc, _ = env.step_env(None, sc, a, p)
+        og, sg, rg, tg, ug, _ = env.step_env(None, sg, a.cuda(), p)
+        for k in oc:
+            torch.testing.assert_close(og[k].cpu(), oc[k], rtol=1e-6, atol=1e-6, msg=k)
+        torch.testing.assert_close(rg.cpu(), rc, rtol=1e-6, atol=1e-6)
+        assert torch.equal(ug.cpu(), uc) and torch.equal(tg.cpu(), tc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sac", "awac", "awac_softmax", "iql"])
+def test_actor_critic_update_on_card_matches_cpu_path(name):
+    """One float32 SAC, AWAC or IQL update with the same injected normal
+    draws on the card (no TF32) and on the CPU: every metric and the td
+    errors to rtol 1e-4, and the networks stay on the card."""
+    _cuda()
+    from border_tpu_torch.agents import AWAC, IQL, SAC, AWACConfig, IQLConfig, SACConfig
+    from border_tpu_torch.core import spaces
+    from border_tpu_torch.replay import TransitionBatch
+
+    b, od, ad = 64, 8, 2
+    agent, draws = {
+        "sac": (SAC(SACConfig(actor_hidden=(64, 64), critic_hidden=(64, 64))), True),
+        "awac": (AWAC(AWACConfig(actor_hidden=(64, 64), critic_hidden=(64, 64),
+                                 lambda_=10.0)), True),
+        "awac_softmax": (AWAC(AWACConfig(actor_hidden=(64,), critic_hidden=(64,),
+                                         weight_mode="softmax")), True),
+        "iql": (IQL(IQLConfig(actor_hidden=(64,), critic_hidden=(64,),
+                              value_hidden=(64,))), False)}[name]
+    obs_space = spaces.Box(-float("inf"), float("inf"), (od,), torch.float32)
+    act_space = spaces.Box(-1.0, 1.0, (ad,), torch.float32)
+    g = torch.Generator().manual_seed(6)
+    batch = dict(obs=torch.randn((b, od), generator=g),
+                 act=torch.rand((b, ad), generator=g) * 2 - 1,
+                 next_obs=torch.randn((b, od), generator=g),
+                 reward=torch.randn(b, generator=g),
+                 terminated=torch.rand(b, generator=g) < 0.1,
+                 truncated=torch.zeros(b, dtype=torch.bool))
+    noise = tuple(torch.randn((b, ad), generator=g) for _ in range(2))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for d in ("cpu", "cuda"):
+            st = agent.init(0, obs_space, act_space, device=d)
+            kw = {"noise": tuple(z.to(d) for z in noise)} if draws else {}
+            st, m, td = agent.update(
+                st, TransitionBatch(**{k: v.to(d) for k, v in batch.items()}), **kw)
+            res[d] = ({k: v.item() for k, v in m.items()}, td.cpu(), st)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k, v in res["cpu"][0].items():
+        assert res["cuda"][0][k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+    torch.testing.assert_close(res["cuda"][1], res["cpu"][1], rtol=1e-4, atol=1e-5)
+    st = res["cuda"][2]
+    assert st.n_opts == 1 and next(st.critic_params.parameters()).is_cuda

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from border_tpu_torch import convert
-from border_tpu_torch.agents import DQN, IQN, DQNConfig
+from border_tpu_torch.agents import AWAC, BC, DQN, IQL, IQN, SAC, DQNConfig
+from border_tpu_torch.data import MinariDataset, NormalizedEvaluator, collect_dataset
 from border_tpu_torch.core import VecEnv, spaces
 from border_tpu_torch.envs import make
 from border_tpu_torch.models import AtariCNN
@@ -37,7 +38,7 @@ def test_port_imports_no_jax_and_nothing_of_border_tpu():
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 36  # every submodule was imported
+    assert int(out.stdout.split()[-1]) >= 47  # every submodule was imported
 
 
 def test_port_sources_name_no_jax_module_in_an_import():
@@ -47,11 +48,14 @@ def test_port_sources_name_no_jax_module_in_an_import():
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "border_tpu_torch").rglob("*.py")) + [
         root / "chip_smoke.py"]
-    assert len(files) >= 41
+    assert len(files) >= 51
     for new in ("models/mlp.py", "models/iqn.py", "agents/iqn.py",
                 "envs/classic_control.py", "envs/breakout.py",
                 "envs/seaquest.py", "envs/freeway.py",
-                "envs/space_invaders.py"):
+                "envs/space_invaders.py", "agents/gaussian.py",
+                "agents/sac.py", "agents/bc.py", "agents/awac.py",
+                "agents/iql.py", "envs/reacher.py", "data/datasets.py",
+                "data/minari.py", "data/__init__.py", "train/offline.py"):
         assert root / "border_tpu_torch" / new in files
     banned = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|border_tpu)(?:[.\s]|$)",
@@ -108,6 +112,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         convert.cartpole_state(types.SimpleNamespace(
             x=[0.0], x_dot=[0.0], theta=[0.0], theta_dot=[0.0], t=[0]))
     assert convert.sum_tree_state(tree, device="cpu").sum_tree.device.type == "cpu"
+    # the continuous-control and offline entry points
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VecEnv(make("Reacher-v0"), 2)
+    reacher = make("ReacherGoal-v0")
+    obs, act = reacher.observation_space(None), reacher.action_space(None)
+    for agent in (SAC(), BC(), AWAC(), IQL()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            agent.init(0, obs, act)
+        assert agent.init(0, obs, act, device="cpu") is not None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Evaluator(reacher)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NormalizedEvaluator(reacher, ref_min=0.0, ref_max=1.0)
+    md = MinariDataset.load("pendulum-medium-v0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        md.create_replay_buffer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        md.make_evaluator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        collect_dataset(reacher, BC(), None, n_steps=4, num_envs=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.reacher_state(types.SimpleNamespace(
+            q=[[0.0, 0.0]], qd=[[0.0, 0.0]], goal=[[0.1, 0.2]], t=[0]))
+    for name in ("sac_state", "bc_state", "awac_state", "iql_state"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            getattr(convert, name)(None, types.SimpleNamespace(), obs, act)
     # asked for explicitly, the CPU works
     assert VecEnv(env, 2, device="cpu").device == torch.device("cpu")
     assert FrameReplayBuffer(8, 2, device="cpu").init().frames.device.type == "cpu"
