@@ -110,6 +110,9 @@ class GaussianActorAgent(Agent):
     def policy_params(self, state) -> nn.Module:
         return state.actor_params
 
+    def sync_policy(self, state, policy_params: nn.Module):
+        return dataclasses.replace(state, actor_params=policy_params)
+
 
 class AWAC(GaussianActorAgent):
     name = "awac"

@@ -97,3 +97,6 @@ class BC(Agent):
 
     def policy_params(self, state: BCState) -> nn.Module:
         return state.params
+
+    def sync_policy(self, state, policy_params: nn.Module):
+        return dataclasses.replace(state, params=policy_params)

@@ -216,3 +216,5 @@ class DQN(Agent):
     def policy_params(self, state: DQNState) -> nn.Module:
         return state.params
 
+    def sync_policy(self, state, policy_params: nn.Module):
+        return dataclasses.replace(state, params=policy_params)

@@ -222,3 +222,6 @@ class IQN(Agent):
 
     def policy_params(self, state: IQNState) -> nn.Module:
         return state.params
+
+    def sync_policy(self, state, policy_params: nn.Module):
+        return dataclasses.replace(state, params=policy_params)

@@ -209,3 +209,6 @@ class SAC(Agent):
 
     def policy_params(self, state: SACState) -> nn.Module:
         return state.actor_params
+
+    def sync_policy(self, state, policy_params: nn.Module):
+        return dataclasses.replace(state, actor_params=policy_params)

@@ -84,6 +84,13 @@ class Agent:
         """The parameters action selection needs."""
         raise NotImplementedError
 
+    def sync_policy(self, state: AgentState, policy_params: Any) -> AgentState:
+        """A new state object that acts with ``policy_params`` (a module of
+        the same structure as ``policy_params(state)``) and shares every
+        other field with ``state``; its host-int counters are its own.
+        Neither the given module nor ``state`` is changed."""
+        raise NotImplementedError
+
     # -- checkpointing (≙ Agent::save_params/load_params) ------------------
     def save(self, state: AgentState, path: str) -> None:
         """Save the whole agent state (networks, optimizer moments,

@@ -33,7 +33,7 @@ from border_tpu_torch.core.env import Environment, VecEnv
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.record.record import Record
 from border_tpu_torch.record.recorder import NullRecorder, Recorder
-from border_tpu_torch.replay.buffer import Transition, map_obs
+from border_tpu_torch.replay.buffer import ReplayBuffer, Transition, map_obs
 from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -61,6 +61,60 @@ def _slice_batch(batch, lo: int, hi: int):
         else map_obs(lambda x: x[lo:hi], getattr(batch, f.name))
         for f in dataclasses.fields(batch)
     })
+
+
+def _add_metrics(sums: Dict[str, Any], metrics: Dict[str, Any]) -> None:
+    for k, v in metrics.items():
+        sums[k] = sums[k] + v if k in sums else v
+
+
+def update_burst(agent: Agent, buffer, agent_state, buf_state,
+                 gen: torch.Generator, batch_size: int, m: int):
+    """``m`` updates in order, each on its own sample, with priority
+    feedback: the JAX trainers' sequential update loop.  Returns the states
+    and the metrics' means over the burst, tensors still on the device."""
+    sums: Dict[str, Any] = {}
+    for _ in range(m):
+        batch = buffer.sample(buf_state, gen, batch_size, n_opts=agent_state.n_opts)
+        agent_state, metrics, td_err = agent.update(agent_state, batch, gen)
+        _add_metrics(sums, metrics)
+        if td_err is not None:
+            buf_state = buffer.update_priority(buf_state, batch.ix_sample, td_err)
+    return agent_state, buf_state, {k: v / m for k, v in sums.items()}
+
+
+def metrics_to_host(metrics: Dict[str, Any], *scalars: torch.Tensor):
+    """One device→host copy for every tensor metric and the device
+    ``scalars``: returns (the metrics as a Record, the scalars' values)."""
+    keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+    tensors = [*scalars, *(metrics[k].float() for k in keys)]
+    vals = torch.stack(tensors).tolist() if tensors else []
+    rec = Record({k: float(v) for k, v in metrics.items()
+                  if not torch.is_tensor(v)})
+    rec.merge_inplace(Record(dict(zip(keys, vals[len(scalars):]))))
+    return rec, vals[:len(scalars)]
+
+
+def param_stats_record(agent: Agent, agent_state) -> Record:
+    """Per-tensor statistics of the policy's parameters, one copy to the
+    host."""
+    stats = param_stats(agent.policy_params(agent_state), prefix="param/")
+    return Record(dict(zip(stats, torch.stack(list(stats.values())).tolist())))
+
+
+def example_transition(observation_space, action_space, device) -> Transition:
+    """The zero transition a flat buffer sizes its storage from (the frame
+    buffer knows its shapes and ignores it)."""
+    obs0 = observation_space.zero(device)
+    flag = torch.zeros((), dtype=torch.bool, device=device)
+    return Transition(
+        obs=obs0,
+        act=action_space.zero(device),
+        next_obs=obs0,
+        reward=torch.zeros((), device=device),
+        terminated=flag,
+        truncated=flag,
+    )
 
 
 @dataclasses.dataclass
@@ -118,6 +172,7 @@ class Trainer:
             1, round(transitions_per_chunk / c.opt_interval)
         ) * c.n_updates_per_opt
         self._check_sample_batches(buffer)
+        self._check_nstep_stride(buffer, c.num_envs)
         self._check_nstep_clip(agent, buffer)
         self._check_nstep_gamma(agent, buffer)
 
@@ -139,6 +194,19 @@ class Trainer:
             raise ConfigError(
                 f"slice_group ({buffer.slice_group}) must divide batch_size "
                 f"({c.batch_size}) when updates_per_sample_batch > 1"
+            )
+
+    @staticmethod
+    def _check_nstep_stride(buffer, expected: int) -> None:
+        """An n-step flat buffer reads an env's next transition ``stride``
+        slots on: the stride must be the envs pushed per vec step, or the
+        n-step windows mix transitions of different envs."""
+        if (isinstance(buffer, ReplayBuffer) and buffer.n_step > 1
+                and buffer.stride != expected):
+            raise ConfigError(
+                f"n-step ReplayBuffer stride ({buffer.stride}) must equal "
+                f"the envs pushed per vec step ({expected}) — ring "
+                f"neighbors would belong to different envs otherwise"
             )
 
     @staticmethod
@@ -216,6 +284,9 @@ class Trainer:
         B, M = c.batch_size, self.updates_per_chunk
         uniform = self.buffer.per is None
         ups = c.updates_per_sample_batch if uniform else 1
+        if ups == 1 and not (uniform and c.prefetch_sample):
+            return update_burst(self.agent, self.buffer, agent_state,
+                                buf_state, gen, B, M)
         sums: Dict[str, Any] = {}
 
         def sample(n):
@@ -223,44 +294,55 @@ class Trainer:
                                       n_opts=agent_state.n_opts)
 
         def update(batch):
-            state, metrics, td_err = self.agent.update(agent_state, batch, gen)
-            for k, v in metrics.items():
-                sums[k] = sums[k] + v if k in sums else v
-            return state, td_err
+            state, metrics, _ = self.agent.update(agent_state, batch, gen)
+            _add_metrics(sums, metrics)
+            return state
 
         if ups > 1:
             for _ in range(M // ups):
                 big = sample(B * ups)
                 for i in range(ups):
-                    agent_state, _ = update(_slice_batch(big, i * B, (i + 1) * B))
-        elif uniform and c.prefetch_sample:
+                    agent_state = update(_slice_batch(big, i * B, (i + 1) * B))
+        else:
             batch = sample(B)
             for _ in range(M):
                 next_batch = sample(B)  # for iteration i+1
-                agent_state, _ = update(batch)
+                agent_state = update(batch)
                 batch = next_batch
-        else:
-            for _ in range(M):
-                batch = sample(B)
-                agent_state, td_err = update(batch)
-                if td_err is not None:
-                    buf_state = self.buffer.update_priority(
-                        buf_state, batch.ix_sample, td_err
-                    )
         means = {k: v / M for k, v in sums.items()}
         return agent_state, buf_state, means
 
     def _chunk(self, agent_state, vec_state, buf_state, gen: torch.Generator,
-               do_update: bool):
-        agent_state, vec_state, buf_state, ep_ret, ep_cnt = self._env_scan(
-            agent_state, vec_state, buf_state, gen, explore=True
-        )
+               do_update: bool, do_env: bool = True):
+        if do_env:
+            agent_state, vec_state, buf_state, ep_ret, ep_cnt = self._env_scan(
+                agent_state, vec_state, buf_state, gen, explore=True
+            )
+        else:
+            ep_ret = ep_cnt = torch.zeros((), device=self.device)
         metrics = {}
         if do_update:
             agent_state, buf_state, metrics = self._update_scan(
                 agent_state, buf_state, gen
             )
         return agent_state, vec_state, buf_state, metrics, ep_ret, ep_cnt
+
+    def _dispatch(self, agent_state, vec_state, buffer_state,
+                  gen: torch.Generator, warmed: bool):
+        """One loop iteration's device work: here the chunk, acting and
+        learning with the same parameters.  ``AsyncTrainer`` overrides it
+        with an actor phase on stale parameters and a learner phase, and
+        inherits every cadence of :meth:`train`."""
+        return self._chunk(agent_state, vec_state, buffer_state, gen, warmed)
+
+    # subclass checkpoint hooks: state beyond the agent's, the buffer's and
+    # the loop's that a resumed run needs to go on bit-exactly
+    def _checkpoint_extra(self, agent_state) -> dict:
+        return {}
+
+    def _restore_checkpoint_extra(self, ex: dict, agent_state) -> None:
+        """``ex``: the restored ``extra``; a module saved by
+        :meth:`_checkpoint_extra` comes back as its ``state_dict``."""
 
     # ------------------------------------------------------------------
     # state construction
@@ -271,19 +353,8 @@ class Trainer:
             device=self.device,
         )
         vec_state = self.vec.reset(seed_env)
-        # the template a flat buffer sizes its storage from (the frame
-        # buffer knows its shapes and ignores it)
-        obs0 = self.vec.observation_space.zero(self.device)
-        flag = torch.zeros((), dtype=torch.bool, device=self.device)
-        example = Transition(
-            obs=obs0,
-            act=self.vec.action_space.zero(self.device),
-            next_obs=obs0,
-            reward=torch.zeros((), device=self.device),
-            terminated=flag,
-            truncated=flag,
-        )
-        buffer_state = self.buffer.init(example)
+        buffer_state = self.buffer.init(example_transition(
+            self.vec.observation_space, self.vec.action_space, self.device))
         return agent_state, vec_state, buffer_state
 
     # ------------------------------------------------------------------
@@ -351,6 +422,7 @@ class Trainer:
             next_ckpt = int(ex["next_ckpt"])
             next_agent_info = int(ex["next_agent_info"])
             next_cost = int(ex["next_cost"])
+            self._restore_checkpoint_extra(ex, agent_state)
 
         # the rates cover only this call's work: the counters may start
         # non-zero after a resume
@@ -365,13 +437,10 @@ class Trainer:
             )
             t_chunk = time.perf_counter()
             agent_state, vec_state, buffer_state, metrics, ep_ret, ep_cnt = (
-                self._chunk(agent_state, vec_state, buffer_state, gen, warmed)
+                self._dispatch(agent_state, vec_state, buffer_state, gen, warmed)
             )
             # the chunk's one device→host sync: every device scalar at once
-            dev_keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
-            vals = torch.stack(
-                [ep_ret, ep_cnt] + [metrics[k].float() for k in dev_keys]
-            ).tolist()
+            rec, (ret_sum, ret_cnt) = metrics_to_host(metrics, ep_ret, ep_cnt)
             dt = time.perf_counter() - t_chunk
 
             env_steps += transitions_per_chunk
@@ -379,11 +448,8 @@ class Trainer:
                 opt_steps = agent_state.n_opts
 
             # -- telemetry (≙ trainer.rs:305-320 record/store/flush) -------
-            rec = Record({k: float(v) for k, v in metrics.items()
-                          if not torch.is_tensor(v)})
-            rec.merge_inplace(Record(dict(zip(dev_keys, vals[2:]))))
-            if vals[1] > 0:
-                rec["episode_return_train"] = vals[0] / vals[1]
+            if ret_cnt > 0:
+                rec["episode_return_train"] = ret_sum / ret_cnt
             rec["env_steps"] = float(env_steps)
             rec["samples_per_sec"] = transitions_per_chunk / dt
             if warmed:
@@ -412,13 +478,8 @@ class Trainer:
             # -- periodic per-tensor param stats ---------------------------
             if (c.record_agent_info_interval and warmed
                     and opt_steps >= next_agent_info):
-                stats = param_stats(
-                    self.agent.policy_params(agent_state), prefix="param/"
-                )
                 self.recorder.write_at(
-                    Record(dict(zip(stats, torch.stack(list(stats.values())).tolist()))),
-                    opt_steps,
-                )
+                    param_stats_record(self.agent, agent_state), opt_steps)
                 next_agent_info = opt_steps + c.record_agent_info_interval
 
             # -- evaluation + best-model (≙ post_process, trainer.rs:231-264)
@@ -460,6 +521,7 @@ class Trainer:
                         "next_ckpt": next_ckpt,
                         "next_agent_info": next_agent_info,
                         "next_cost": next_cost,
+                        **self._checkpoint_extra(agent_state),
                     },
                 )
 

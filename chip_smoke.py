@@ -7,7 +7,8 @@ Phases, one line each (any failure exits non-zero with no result line):
 
 1. the card's name and power limit, as nvidia-smi gives them;
 2. the CUDA kernel border_tpu_torch/csrc/frame_gather.cu is built with
-   nvcc for sm_90a;
+   nvcc for sm_90a and, at the same time, the C++ host envs cpp/envpool.cpp
+   with the host compiler (g++, or $CXX) and cpp/Makefile's flags;
 3. each kernel against its plain PyTorch version on the card, bitwise: the
    frame gather at the main-path shape (a 1024·256-frame 84×84 uint8 ring,
    512×5 indices), at 512×4 indices (separate mode and n-step), at 256×5
@@ -63,9 +64,9 @@ Phases, one line each (any failure exits non-zero with no result line):
 12. DQN on CartPole through the flat replay buffer at the width of
     bench.py's fused config (4096 envs, 64 steps a chunk, batch 512, 1024
     updates a chunk): one warmup chunk and two update chunks, then phase 7;
-13. the whole cartpole learning-gate config (12,000 updates, 128 envs,
-    n-step 3, an evaluation of 20 episodes every 500 updates), one seed:
-    the run fails under a best evaluation score of 100;
+13. the cartpole learning-gate config (128 envs, n-step 3, an evaluation
+    of 20 episodes every 500 updates), one seed, cut to 6,000 of its 12,000
+    updates: the run fails under a best evaluation score of 100;
 14. SAC on Pendulum at the pendulum gate config's width (128 envs, 256
     updates a chunk, batch 128, actor and two critics 128x128, auto
     entropy coefficient): one warmup chunk, two update chunks and one
@@ -79,7 +80,30 @@ Phases, one line each (any failure exits non-zero with no result line):
 16, 17. the awac_offline and iql_offline configs at full width over the
     same corpus, to their first evaluation at 2,000 updates.
     Each offline phase ends with one chunk of 250 updates timed and 32
-    traced.
+    traced;
+18. the pong_host config through HostEnvTrainer at its width (256 C++
+    envpool Pong envs, batch 512, a 256 x 1024-frame ring, 4 updates an
+    iteration): the gate's warmup of 50,000 env steps, 1,024 updates,
+    evaluations at 512 and 1,024 updates (5 episodes cut to 200 of the
+    gate's 3,000 steps) and a full-state checkpoint at the end; a second
+    trainer resumed from it must restore the ring and the agent bitwise
+    and go on (counters, replay, evaluation index) for 256 updates.  The
+    gather's launches must equal the updates.  Then the iteration's parts
+    timed apart and 16 pipelined iterations traced;
+19. the breakout_host config the same way: warmup and 256 updates;
+20. the pendulum_host config (SAC 128x128, auto entropy coefficient, 32
+    envs, batch 128, 4 updates an iteration) over PyVecEnv and a numpy
+    Pendulum with Gymnasium's equations (the card's machine has no
+    gymnasium): the 1,000-step warmup, 512 updates and one evaluation of
+    the gate's 10 x 200 steps;
+21. native CartPole through HostEnvTrainer at the JAX package's host-path
+    learning test's config (DQN 64x64, 32 envs, 1,500 updates, evaluations
+    of 5 x 500 steps every 500): fails under a best score of 100;
+22. AsyncTrainer on Pong at bench.py's config with sync_interval 100: a
+    warmup chunk and two update chunks with a checkpoint after each; the
+    actor's parameters at every chunk's start must equal the learner's at
+    the last sync, bitwise, and a trainer resumed from the first checkpoint
+    must end bitwise equal (actor parameters included).
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -119,6 +143,9 @@ CART_GATE = dict(max_opts=12_000, warmup_period=1_000, opt_interval=16,
                  batch_size=256, num_envs=128, steps_per_chunk=32,
                  eval_interval=500)
 CART_GATE_TARGET, CART_MIN_SCORE = 200.0, 100.0
+# the run is cut to CART_CUT of the gate's 12,000 updates to keep the script
+# within its time; seed 0 on the card first passes 100 at 5,120 updates
+CART_CUT = 6_000
 EVAL_KEYS = {"Episode return", "Episode return min", "Episode return max",
              "Episode length", "Episodes truncated"}
 # the pendulum learning-gate config (SAC, Gaussian actor, two critics):
@@ -138,6 +165,33 @@ OFFLINE_EVAL_EPISODES, OFFLINE_EVAL_STEPS = 200, 50
 OFFLINE_CUT = 2_000
 # bc_offline runs whole and fails under BC_MIN_SCORE (normalized)
 BC_TARGET, BC_MIN_SCORE = 76.0, 50.0
+# the host-env learning-gate configs (benchmarks/learning.py:181-223,
+# :262-288): host envs stepped by a feeder thread feed the device learner
+HOST_PIXEL_GATE = dict(max_opts=40_000, warmup_period=50_000, opt_interval=64,
+                       batch_size=512, num_envs=256, steps_per_chunk=32,
+                       eval_interval=2_000)
+HOST_GATE = {
+    "pong_host": HOST_PIXEL_GATE,
+    "breakout_host": HOST_PIXEL_GATE,
+    "pendulum_host": dict(max_opts=20_000, warmup_period=1_000, opt_interval=8,
+                          batch_size=128, num_envs=32, steps_per_chunk=32,
+                          eval_interval=2_000),
+}
+HOST_CAPACITY = {"pong_host": 1_024, "breakout_host": 1_024,
+                 "pendulum_host": 65_536}
+# (episodes, steps) of each config's HostEvaluator
+HOST_EVAL = {"pong_host": (5, 3_000), "breakout_host": (5, 6_750),
+             "pendulum_host": (10, 200)}
+# the card's runs: updates after the gate's warmup; pong_host's evaluations
+# are cut to 200 of the gate's 3,000 steps and its resumed run goes on for
+# HOST_RESUME_UPDATES more
+HOST_UPDATES = {"pong_host": 1_024, "breakout_host": 256, "pendulum_host": 512}
+PONG_HOST_EVAL_STEPS, HOST_RESUME_UPDATES = 200, 256
+# native CartPole through HostEnvTrainer, the JAX package's own host-path
+# learning test (tests/test_host_trainer.py:40-72); fails under its 100
+HOST_CART = dict(max_opts=1_500, warmup_period=500, opt_interval=16,
+                 batch_size=64, num_envs=32, steps_per_chunk=8, eval_interval=500)
+HOST_CART_MIN_SCORE = 100.0
 
 
 def fail(msg: str) -> None:
@@ -171,11 +225,25 @@ def main() -> None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    # -- 2. build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.load("frame_gather")
-    print(f"build: frame_gather.cu with nvcc for sm_90a and loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # -- 2. build: the kernel (nvcc) and the host envs (g++), started together --
+    import concurrent.futures
+
+    def timed_build(name):
+        t = time.perf_counter()
+        _build.load(name)
+        return time.perf_counter() - t
+
+    cxx = _build.cxx()
+    cxx_version = subprocess.run([cxx, "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout.splitlines()[0]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = {n: pool.submit(timed_build, n) for n in ("frame_gather", "envpool")}
+        built = {n: f.result() for n, f in futures.items()}
+    print(f"build: frame_gather.cu with nvcc for sm_90a in "
+          f"{built['frame_gather']:.2f} s; cpp/envpool.cpp with {cxx} "
+          f"({cxx_version}) and cpp/Makefile's flags {' '.join(_build.CXX_FLAGS)} "
+          f"in {built['envpool']:.2f} s, into {_build.library_path('envpool')}",
+          flush=True)
 
     # -- 3. kernel vs plain version, bitwise --------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -276,38 +344,55 @@ def main() -> None:
     actor_critic_checks(torch, dev)
     sum_tree_check(torch, dev)
 
+    phase_s = {}
+
+    def timed(label, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[label] = round(time.perf_counter() - t, 2)
+        return out
+
     # -- 6. the uniform path --------------------------------------------------
-    launches, tr, r = main_path(torch, dev)
+    launches, tr, r = timed("6 uniform", main_path, torch, dev)
 
     # -- 7. where a chunk's time goes ----------------------------------------
-    breakdown(torch, tr, r, "uniform")
+    timed("7 uniform breakdown", breakdown, torch, tr, r, "uniform")
     del tr, r
     torch.cuda.empty_cache()
 
     # -- 8. the prioritized path, with evaluation, checkpoints and resume ---
-    launches += per_path(torch, dev)
+    launches += timed("8 per", per_path, torch, dev)
 
     # -- 9. slice mode and n-step 3 -------------------------------------------
-    launches += mode_paths(torch, dev)
+    launches += timed("9 modes", mode_paths, torch, dev)
 
     # -- 10. IQN on Seaquest ----------------------------------------------------
-    launches += seaquest_path(torch, dev)
+    launches += timed("10 seaquest", seaquest_path, torch, dev)
 
     # -- 11. Breakout, Freeway, Space Invaders -----------------------------------
-    launches += game_paths(torch, dev)
+    launches += timed("11 games", game_paths, torch, dev)
 
     # -- 12, 13. the flat-buffer path: CartPole fused, then a run that learns ----
-    cartpole_fused_path(torch, dev)
-    cartpole_learns(torch, dev)
+    timed("12 cartpole fused", cartpole_fused_path, torch, dev)
+    timed("13 cartpole learns", cartpole_learns, torch, dev)
 
     # -- 14. SAC on Pendulum --------------------------------------------------------
-    pendulum_sac_path(torch, dev)
+    timed("14 pendulum sac", pendulum_sac_path, torch, dev)
 
     # -- 15-17. the offline family over the committed corpus ----------------------
-    offline_path(torch, dev, "bc_offline", OFFLINE_GATE_OPTS["bc_offline"],
-                 min_score=BC_MIN_SCORE)
-    offline_path(torch, dev, "awac_offline", OFFLINE_CUT)
-    offline_path(torch, dev, "iql_offline", OFFLINE_CUT)
+    timed("15 bc_offline", offline_path, torch, dev, "bc_offline",
+          OFFLINE_GATE_OPTS["bc_offline"], min_score=BC_MIN_SCORE)
+    timed("16 awac_offline", offline_path, torch, dev, "awac_offline", OFFLINE_CUT)
+    timed("17 iql_offline", offline_path, torch, dev, "iql_offline", OFFLINE_CUT)
+
+    # -- 18-21. the host-env paths: C++ envpool and Gymnasium-API envs ------------
+    launches += timed("18 pong_host", pong_host_path, torch, dev)
+    launches += timed("19 breakout_host", breakout_host_path, torch, dev)
+    timed("20 pendulum_host", pendulum_host_path, torch, dev)
+    timed("21 host cartpole", host_cartpole_learns, torch, dev)
+
+    # -- 22. the decoupled actor-learner on Pong ----------------------------------
+    launches += timed("22 async pong", async_pong_path, torch, dev)
 
     kernels = [{
         "name": "frame_gather",
@@ -329,6 +414,7 @@ def main() -> None:
         "batch_256": {k: timings[SEAQUEST_BATCH, STACK + 1][k] for k in
                       ("ms", "plain_ms", "bound_ms", "library_ms")},
     }]
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1192,7 +1278,8 @@ def cartpole_fused_path(torch, dev) -> None:
 
 
 def cartpole_learns(torch, dev) -> None:
-    """Phase 13: the cartpole learning-gate config, whole, on one seed."""
+    """Phase 13: the cartpole learning-gate config on one seed, cut to
+    CART_CUT updates."""
     from border_tpu_torch.agents import DQN, DQNConfig
     from border_tpu_torch.envs import make
     from border_tpu_torch.replay import ReplayBuffer
@@ -1202,7 +1289,7 @@ def cartpole_learns(torch, dev) -> None:
     agent = DQN(DQNConfig(hidden=(64, 64), lr=5e-4, gamma=0.99, tau=1.0,
                           soft_update_interval=500, double_dqn=True,
                           eps_final_step=10_000))
-    cfg = TrainerConfig(seed=0, **CART_GATE)
+    cfg = TrainerConfig(seed=0, **{**CART_GATE, "max_opts": CART_CUT})
     buffer = ReplayBuffer(capacity=CART_CAPACITY, n_step=3,
                           stride=CART_GATE["num_envs"])
     evaluator = Evaluator(env, n_episodes=20, max_steps=500)
@@ -1212,8 +1299,8 @@ def cartpole_learns(torch, dev) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     scores = [s for _, s in r.eval_history]
-    n_evals = CART_GATE["max_opts"] // CART_GATE["eval_interval"]
-    if r.opt_steps < CART_GATE["max_opts"] or len(scores) < n_evals or not all(
+    n_evals = CART_CUT // CART_GATE["eval_interval"]
+    if r.opt_steps < CART_CUT or len(scores) < n_evals or not all(
             map(math.isfinite, scores)):
         fail(f"cartpole learns: {r.opt_steps} updates, evaluations {r.eval_history}")
     result = {
@@ -1223,7 +1310,8 @@ def cartpole_learns(torch, dev) -> None:
         "first_score": scores[0], "gate_target": CART_GATE_TARGET,
         "met_gate_target": r.best_score >= CART_GATE_TARGET,
     }
-    print(f"cartpole learns: the cartpole gate config, seed 0, {r.opt_steps} "
+    print(f"cartpole learns: the cartpole gate config cut to {CART_CUT} of its "
+          f"{CART_GATE['max_opts']} updates, seed 0, {r.opt_steps} "
           f"updates and {len(scores)} evaluations of 20 episodes in "
           f"{seconds:.1f} s; best score {r.best_score:.1f} (first "
           f"{scores[0]:.1f}; the gate's target {CART_GATE_TARGET:.0f} "
@@ -1531,6 +1619,627 @@ def trace(torch, run, n: int) -> dict:
                               e.self_cpu_time_total / 1e3 / n]
                              for e in host[:8]],
     }
+
+
+class Box:
+    """A Gymnasium-API box space as PyVecEnv reads it: by its class name and
+    its ``low``/``high``/``shape``/``dtype``."""
+
+    def __init__(self, low, high, shape, dtype):
+        self.low, self.high, self.shape, self.dtype = low, high, shape, dtype
+
+
+class NumpyPendulum:
+    """Gymnasium's ``Pendulum-v1`` (``classic_control/pendulum.py`` with the
+    200-step ``TimeLimit`` that ``gymnasium.make`` adds), in plain numpy
+    for a machine without gymnasium: ``reset(seed=)`` → ``(obs, info)``,
+    ``step(u)`` → ``(obs, reward, terminated, truncated, info)``, the same
+    float64 state and seeding (``PCG64(SeedSequence(seed))``), so the same
+    seeds and actions give gymnasium's observations and rewards bitwise."""
+
+    max_speed, max_torque, dt, g, m, l, horizon = 8, 2.0, 0.05, 10.0, 1.0, 1.0, 200
+
+    def __init__(self):
+        import numpy as np
+
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.observation_space = Box(low=-high, high=high, shape=(3,),
+                                     dtype=np.dtype(np.float32))
+        self.action_space = Box(low=np.full(1, -2.0, np.float32),
+                                high=np.full(1, 2.0, np.float32), shape=(1,),
+                                dtype=np.dtype(np.float32))
+        self._rng = None
+
+    def reset(self, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None or self._rng is None:
+            self._rng = np.random.Generator(np.random.PCG64(np.random.SeedSequence(seed)))
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self.t = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        import numpy as np
+
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot], dtype=np.float32)
+
+    def step(self, u):
+        import numpy as np
+
+        th, thdot = self.state
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        costs = (((th + np.pi) % (2 * np.pi)) - np.pi) ** 2 + 0.1 * thdot**2 + 0.001 * (u**2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th) + 3.0 / (m * l**2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self.t += 1
+        return self._obs(), -costs, False, self.t >= self.horizon, {}
+
+    def close(self):
+        pass
+
+
+def numpy_pendulum(n: int, seed: int):
+    """``n`` :class:`NumpyPendulum` envs behind ``PyVecEnv``."""
+    from border_tpu_torch.envs import PyVecEnv
+
+    return PyVecEnv([NumpyPendulum] * n, seed=seed)
+
+
+def host_config(name: str, device, capacity=None, eval_steps=None, **cut):
+    """The host-env learning-gate config ``name`` (benchmarks/learning.py:
+    pong_host, breakout_host, pendulum_host) written with the port's
+    classes: (env, agent, buffer, TrainerConfig, evaluator).  ``cut``
+    replaces TrainerConfig fields (``num_envs`` cuts the width, the ring
+    following it); ``capacity`` and ``eval_steps`` cut the ring's depth and
+    the evaluation's horizon.  pendulum_host's envs are
+    :class:`NumpyPendulum` behind ``PyVecEnv``."""
+    from border_tpu_torch.agents import SAC, SACConfig
+    from border_tpu_torch.replay import FrameReplayBuffer, ReplayBuffer
+    from border_tpu_torch.train import HostEvaluator, TrainerConfig
+
+    cfg = TrainerConfig(seed=0, **{**HOST_GATE[name], **cut})
+    capacity = capacity or HOST_CAPACITY[name]
+    episodes, steps = HOST_EVAL[name]
+    steps = eval_steps or steps
+    if name in ("pong_host", "breakout_host"):
+        env_id = "Pong-v0" if name == "pong_host" else "Breakout-v0"
+        buffer = FrameReplayBuffer(capacity=capacity, num_envs=cfg.num_envs,
+                                   device=device)
+        return (env_id, _pixel_dqn(), buffer, cfg,
+                HostEvaluator(env_id, n_episodes=episodes, max_steps=steps))
+    agent = SAC(SACConfig(actor_hidden=(128, 128), critic_hidden=(128, 128),
+                          n_critics=2, actor_lr=3e-4, critic_lr=3e-4,
+                          ent_coef_mode="auto"))
+    return (numpy_pendulum(cfg.num_envs, cfg.seed), agent,
+            ReplayBuffer(capacity=capacity, device=device), cfg,
+            HostEvaluator(numpy_pendulum, n_episodes=episodes, max_steps=steps))
+
+
+class _IndexedEvaluator:
+    """Wraps an evaluator: keeps each evaluation's index, score and seconds."""
+
+    def __init__(self, inner, torch):
+        self.inner, self.torch = inner, torch
+        self.indices, self.scores, self.seconds, self.records = [], [], [], []
+
+    def evaluate(self, agent, agent_state, eval_index=0):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score, rec = self.inner.evaluate(agent, agent_state, eval_index=eval_index)
+        self.seconds.append(time.perf_counter() - t0)
+        self.indices.append(eval_index)
+        self.scores.append(score)
+        self.records.append(dict(rec.items()))
+        return score, rec
+
+
+def _async_vs_fused(torch, tr, r) -> dict:
+    """The fused Trainer's chunk and AsyncTrainer's dispatch (syncing every
+    time) in turns, fused-async-async-fused-fused-async, from the run's
+    final state at its width with 4 env steps and 64 updates each:
+    seconds a turn, host clock ending in a device sync."""
+    from border_tpu_torch.train import AsyncTrainer, Trainer
+
+    short = tr.config.replace(steps_per_chunk=4, sync_interval=1)
+    runs = {"fused": Trainer(tr.env, tr.agent, tr.buffer, short),
+            "async": AsyncTrainer(tr.env, tr.agent, tr.buffer, short)}
+    gen = torch.Generator(device=tr.device).manual_seed(4)
+    ag, vec, buf = r.agent_state, tr.vec.reset(2), r.buffer_state
+    out = {"updates_a_turn": runs["fused"].updates_per_chunk,
+           "fused_s": [], "async_s": []}
+    for which in ("fused", "async", "async", "fused", "fused", "async"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ag, vec, buf, _, _, _ = runs[which]._dispatch(ag, vec, buf, gen, True)
+        torch.cuda.synchronize()
+        out[f"{which}_s"].append(time.perf_counter() - t0)
+    return out
+
+
+def _free(torch) -> None:
+    """Collect what a phase left (a ring in a reference cycle stays on the
+    card until the collector runs) before the next phase's peak."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _host_run(torch, label, tr, rec):
+    """``tr.train()`` with the gather's count set to 0 just before and read
+    just after; the numbers of the run's update phase from the records kept
+    at chunk cadence (windows of ``steps_per_chunk`` iterations; a window
+    with metrics ended in an update burst, and the first of them may hold
+    warmup iterations, so it is left out)."""
+    from border_tpu_torch.ops import frame_gather
+
+    torch.cuda.reset_peak_memory_stats()
+    frame_gather.gather_frames.launches = 0
+    t0 = time.perf_counter()
+    r = tr.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = frame_gather.gather_frames.launches
+    windows = [c for c in rec.chunks if "env_steps" in c]
+    updating = [c for c in windows if any(k.startswith("loss") for k, _ in c)][1:]
+    warm = [c for c in windows if not any(k.startswith("loss") for k, _ in c)]
+    if not updating or not warm:
+        fail(f"{label}: {len(warm)} warmup and {len(updating)} update windows")
+    eps = [c["samples_per_sec"] for c in updating]
+    upt = tr.updates_per_transition
+    numbers = {
+        "env_steps": r.env_steps, "updates": r.opt_steps, "seconds": seconds,
+        "gather_launches": launches,
+        "env_steps_per_s_update_windows": eps,
+        "updates_per_s_update_windows": [e * upt for e in eps],
+        "host_wait_frac_update_windows": [c["host_wait_frac"] for c in updating],
+        "warmup_env_steps_per_s_median": statistics.median(
+            c["samples_per_sec"] for c in warm),
+        "warmup_host_wait_frac_median": statistics.median(
+            c["host_wait_frac"] for c in warm),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    losses = [v for c in updating for k, v in c if k.startswith("loss")]
+    if not all(map(math.isfinite, losses)):
+        fail(f"{label}: losses {losses}")
+    return r, launches, numbers
+
+
+def host_breakdown(torch, tr, r, label: str, env, iters: int = 16,
+                   trace_iters: int = 8, pools=None) -> dict:
+    """The parts of a host iteration timed apart from the run's final state
+    on a fresh host env (host clock, each part ending in a device sync):
+    the host env step, the upload + ingest + stack advance, the action
+    selection with its copy to the host, and the update burst (``iters``
+    each); then ``trace_iters`` iterations pipelined as the trainer runs
+    them, traced (:func:`trace`).  ``pools``: ``{label: make_env}``, host
+    envs whose pipelined iterations are timed (``iters`` each, untraced)."""
+    import numpy as np
+
+    from border_tpu_torch.envs.native import AsyncEnvFeeder
+
+    gen = torch.Generator(device=tr.device).manual_seed(3)
+    ag, buf = r.agent_state, r.buffer_state
+    n = tr.config.num_envs
+    m = max(1, round(n * tr.updates_per_transition))
+    parts = {"host_env_step_ms": [], "upload_ingest_stack_ms": [],
+             "select_sync_ms": [], "burst_ms": []}
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[key].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def select():
+        act = tr._select(ag, obs_dev, gen)
+        return act, act.cpu().numpy()
+
+    obs_dev = tr._upload(env.reset())
+    ep_len = np.zeros(n, np.int32)
+    for _ in range(iters):
+        act, a_np = clock("select_sync_ms", select)
+        step = clock("host_env_step_ms", lambda: env.step_final(a_np))
+        ag, buf, obs_dev = clock("upload_ingest_stack_ms", lambda: tr._push(
+            ag, buf, obs_dev, act, ep_len, step))
+        ep_len = np.where(step[3] | step[4], 0, ep_len + 1).astype(np.int32)
+        ag, buf, _ = clock("burst_ms", lambda: tr._update_burst(ag, buf, gen, m))
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    out["burst_updates"] = m
+
+    def pipelined(env, count, run=None):
+        """``count`` iterations in the trainer's order; ``run`` wraps them
+        (the trace), else their wall time a iteration in ms."""
+        nonlocal ag, buf, obs_dev, ep_len
+        feeder = AsyncEnvFeeder(env, step_fn=env.step_final)
+        act = tr._select(ag, obs_dev, gen)
+        feeder.submit(act.cpu().numpy())
+
+        def loop():
+            nonlocal ag, buf, obs_dev, act, ep_len
+            for _ in range(count):
+                ag, buf, _ = tr._update_burst(ag, buf, gen, m)
+                step = feeder.collect()
+                ag, buf, obs_dev = tr._push(ag, buf, obs_dev, act, ep_len, step)
+                ep_len = np.where(step[3] | step[4], 0, ep_len + 1).astype(np.int32)
+                act = tr._select(ag, obs_dev, gen)
+                feeder.submit(act.cpu().numpy())
+
+        try:
+            if run is not None:
+                return run(loop)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / count
+        finally:
+            feeder.collect()
+            feeder.close()  # closes the env
+
+    out["iteration_trace"] = pipelined(
+        env, trace_iters, run=lambda loop: trace(torch, loop, trace_iters))
+    for pool, make_env in (pools or {}).items():
+        pool_env = make_env()
+        obs_dev = tr._upload(pool_env.reset())
+        ep_len = np.zeros(n, np.int32)
+        out[f"pipelined_ms_per_iteration_{pool}"] = pipelined(pool_env, iters)
+    if not out["iteration_trace"]["device_busy_ms_each"] > 0:
+        fail(f"{label}: the profiler saw no device time in the iteration trace")
+    print(f"breakdown ({label}): " + json.dumps(out), flush=True)
+    return out
+
+
+def pong_host_path(torch, dev) -> int:
+    """Phase 18: the pong_host config at its width through the warmup and
+    HOST_UPDATES updates, two evaluations cut to 200 steps and a full-state
+    checkpoint at the end; a second trainer resumed from it.  Returns the
+    gather launches of both runs."""
+    from border_tpu_torch.envs.native import NativeVecEnv
+    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.train import HostEnvTrainer
+    from border_tpu_torch.utils import CheckpointManager
+    from border_tpu_torch.utils.checkpoint import pack_state
+
+    name, updates = "pong_host", HOST_UPDATES["pong_host"]
+    work = tempfile.mkdtemp(prefix="border_smoke_host_")
+    try:
+        mgr = CheckpointManager(os.path.join(work, "ckpt"), max_to_keep=1)
+        save = mgr.save
+        save_s = []
+
+        def timed_save(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(*a, **kw)
+            save_s.append(time.perf_counter() - t0)
+
+        mgr.save = timed_save
+        env, agent, buf, cfg, ev = host_config(
+            name, dev, eval_steps=PONG_HOST_EVAL_STEPS, max_opts=updates,
+            eval_interval=updates // 2)
+        ev = _IndexedEvaluator(ev, torch)
+        rec = _chunk_recorder()
+        tr = HostEnvTrainer(env, agent, buf, cfg, recorder=rec, evaluator=ev,
+                            checkpoint_manager=mgr, checkpoint_interval=updates)
+        r, launches, numbers = _host_run(torch, name, tr, rec)
+        warm_iters = -(-cfg.warmup_period // cfg.num_envs) + STACK + 1
+        if r.opt_steps != updates or launches != r.opt_steps:
+            fail(f"{name}: {launches} gather launches for {r.opt_steps} updates")
+        if r.buffer_state.total < warm_iters or not (r.buffer_state.frames > 0).any():
+            fail(f"{name}: {r.buffer_state.total} pushes, or only black frames")
+        if ev.indices != [0, 1] or mgr.all_steps() != [updates] or any(
+                rec_["Episodes truncated"] != HOST_EVAL[name][0] for rec_ in ev.records):
+            fail(f"{name}: evaluations {ev.indices} {ev.records}, checkpoints "
+                 f"{mgr.all_steps()}")
+        ckpt_gb = os.path.getsize(mgr._path(updates)) / 1e9
+
+        # -- a second trainer resumed from the checkpoint ----------------------
+        restore = mgr.restore
+        checked, restore_s = [], []
+
+        def restore_and_check(*a, **kw):
+            t0 = time.perf_counter()
+            out = restore(*a, **kw)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+            for part in ("agent_state", "buffer_state"):
+                x = dict(_packed_leaves(pack_state(getattr(r, part))))
+                y = dict(_packed_leaves(pack_state(out[part])))
+                bad = [k for k in x if x.keys() != y.keys() or not (
+                    _equal(x[k], y[k]) if torch.is_tensor(x[k]) else x[k] == y[k])]
+                if bad:
+                    fail(f"{name}: the restored {part} differs from the saved "
+                         f"one in {bad[:8]}")
+            checked.append(out["extra"]["n_evals"])
+            return out
+
+        mgr.restore = restore_and_check
+        env2, agent2, buf2, cfg2, ev2 = host_config(
+            name, dev, eval_steps=PONG_HOST_EVAL_STEPS,
+            max_opts=updates + HOST_RESUME_UPDATES, eval_interval=updates // 2)
+        ev2 = _IndexedEvaluator(ev2, torch)
+        tr2 = HostEnvTrainer(env2, agent2, buf2, cfg2, evaluator=ev2)
+        frame_gather.gather_frames.launches = 0
+        r2 = tr2.train(resume_from=mgr)
+        torch.cuda.synchronize()
+        launches2 = frame_gather.gather_frames.launches
+        iters2 = HOST_RESUME_UPDATES * cfg.opt_interval // cfg.num_envs
+        if (checked != [1] or ev2.indices != [1] or r2.opt_steps != updates + HOST_RESUME_UPDATES
+                or launches2 != HOST_RESUME_UPDATES
+                or r2.env_steps != r.env_steps + iters2 * cfg.num_envs
+                or r2.buffer_state.total != r.buffer_state.total + iters2):
+            fail(f"{name}: resumed run: restored n_evals {checked}, evaluations "
+                 f"{ev2.indices}, {r2.opt_steps} updates, {launches2} launches, "
+                 f"{r2.env_steps} env steps, {r2.buffer_state.total} pushes")
+        numbers.update(
+            eval_indices=ev.indices + ev2.indices, eval_scores=ev.scores + ev2.scores,
+            evaluator_s=ev.seconds + ev2.seconds, eval_record=ev.records[-1],
+            checkpoint_gb=ckpt_gb, checkpoint_save_s=save_s,
+            checkpoint_restore_s=restore_s, resumed_gather_launches=launches2)
+        print(f"pong_host path: HostEnvTrainer.train() Pong-v0 (C++ envpool), "
+              f"{cfg.num_envs} envs, batch {cfg.batch_size}, ring "
+              f"{cfg.num_envs}x{HOST_CAPACITY[name]}, warmup {cfg.warmup_period} "
+              f"env steps then {r.opt_steps} updates in {numbers['seconds']:.1f} s; "
+              f"env-steps/s {statistics.median(numbers['env_steps_per_s_update_windows']):.1f}, "
+              f"updates/s {statistics.median(numbers['updates_per_s_update_windows']):.2f}, "
+              f"host_wait_frac {statistics.median(numbers['host_wait_frac_update_windows']):.3f} "
+              f"(median update window); frame_gather launches {launches} = updates; "
+              f"a trainer resumed from the {ckpt_gb:.3f} GB checkpoint restored the "
+              f"ring bitwise and went on to {r2.opt_steps} updates, evaluation "
+              f"index 1", flush=True)
+        print("pong_host path numbers: " + json.dumps(numbers), flush=True)
+        del tr2, r2, buf2, mgr
+        _free(torch)
+        # the C++ pool at its default size (a core left to the main thread)
+        # and on every core, in turns
+        pools = {}
+        for label, k in (("default_a", None), ("all_cores_a", os.cpu_count()),
+                         ("all_cores_b", os.cpu_count()), ("default_b", None)):
+            pools[label] = (lambda k=k: NativeVecEnv("Pong-v0", cfg.num_envs,
+                                                     seed=2, n_threads=k))
+        host_breakdown(torch, tr, r, name, NativeVecEnv("Pong-v0", cfg.num_envs, seed=1),
+                       pools=pools)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del tr, r
+    _free(torch)
+    return launches + launches2
+
+
+def breakout_host_path(torch, dev) -> int:
+    """Phase 19: the breakout_host config at its width through the warmup
+    and HOST_UPDATES updates.  Returns the gather launches."""
+    from border_tpu_torch.envs.native import NativeVecEnv
+    from border_tpu_torch.train import HostEnvTrainer
+
+    name, updates = "breakout_host", HOST_UPDATES["breakout_host"]
+    env, agent, buf, cfg, _ = host_config(name, dev, max_opts=updates)
+    rec = _chunk_recorder()
+    tr = HostEnvTrainer(env, agent, buf, cfg, recorder=rec)
+    r, launches, numbers = _host_run(torch, name, tr, rec)
+    if r.opt_steps != updates or launches != r.opt_steps:
+        fail(f"{name}: {launches} gather launches for {r.opt_steps} updates")
+    if not (r.buffer_state.frames > 0).any():
+        fail(f"{name}: the ring holds only black frames")
+    print(f"breakout_host path: HostEnvTrainer.train() Breakout-v0 (C++ envpool), "
+          f"{cfg.num_envs} envs, batch {cfg.batch_size}, warmup "
+          f"{cfg.warmup_period} env steps then {r.opt_steps} updates in "
+          f"{numbers['seconds']:.1f} s; env-steps/s "
+          f"{statistics.median(numbers['env_steps_per_s_update_windows']):.1f}, "
+          f"host_wait_frac {statistics.median(numbers['host_wait_frac_update_windows']):.3f} "
+          f"(median update window); frame_gather launches {launches} = updates",
+          flush=True)
+    print("breakout_host path numbers: " + json.dumps(numbers), flush=True)
+    host_breakdown(torch, tr, r, name, NativeVecEnv("Breakout-v0", cfg.num_envs, seed=1))
+    del tr, r
+    _free(torch)
+    return launches
+
+
+def pendulum_host_path(torch, dev) -> None:
+    """Phase 20: the pendulum_host config at its width over PyVecEnv and
+    NumpyPendulum: the warmup, HOST_UPDATES updates and one evaluation of
+    the gate's 10 x 200 steps."""
+    from border_tpu_torch.train import HostEnvTrainer
+
+    name, updates = "pendulum_host", HOST_UPDATES["pendulum_host"]
+    env, agent, buf, cfg, ev = host_config(name, dev, max_opts=updates,
+                                           eval_interval=updates)
+    ev = _IndexedEvaluator(ev, torch)
+    rec = _chunk_recorder()
+    tr = HostEnvTrainer(env, agent, buf, cfg, recorder=rec, evaluator=ev)
+    r, launches, numbers = _host_run(torch, name, tr, rec)
+    st = r.agent_state
+    if r.opt_steps != updates or launches or ev.indices != [0]:
+        fail(f"{name}: {r.opt_steps} updates, {launches} gather launches, "
+             f"evaluations {ev.indices}")
+    if not (all(p.is_cuda and torch.isfinite(p).all()
+                for p in st.actor_params.parameters())
+            and r.buffer_state.data.obs.is_cuda):
+        fail(f"{name}: the actor or the buffer is not finite or not on the card")
+    score = ev.scores[0]
+    if not (math.isfinite(score) and -200 * 16.3 <= score <= 0):
+        fail(f"{name}: evaluation score {score}")
+    numbers.update(eval_score=score, eval_record=ev.records[0],
+                   evaluator_s=ev.seconds)
+    print(f"pendulum_host path: HostEnvTrainer.train() over PyVecEnv of "
+          f"{cfg.num_envs} numpy Pendulums, SAC 128x128, batch {cfg.batch_size}, "
+          f"warmup {cfg.warmup_period} env steps then {r.opt_steps} updates in "
+          f"{numbers['seconds']:.1f} s; env-steps/s "
+          f"{statistics.median(numbers['env_steps_per_s_update_windows']):.1f}, "
+          f"host_wait_frac {statistics.median(numbers['host_wait_frac_update_windows']):.3f} "
+          f"(median update window); evaluation score {score:.1f}", flush=True)
+    print("pendulum_host path numbers: " + json.dumps(numbers), flush=True)
+    host_breakdown(torch, tr, r, name, numpy_pendulum(cfg.num_envs, 1))
+
+
+def host_cartpole_learns(torch, dev) -> None:
+    """Phase 21: native CartPole through HostEnvTrainer at the JAX
+    package's host-path learning test config; fails under a best score of
+    HOST_CART_MIN_SCORE."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import HostEnvTrainer, HostEvaluator, TrainerConfig
+
+    agent = DQN(DQNConfig(hidden=(64, 64), lr=1e-3, tau=0.01,
+                          soft_update_interval=1, double_dqn=True,
+                          eps_final_step=20_000))
+    rec = _chunk_recorder()
+    tr = HostEnvTrainer("CartPole-v1", agent, ReplayBuffer(16_384),
+                        TrainerConfig(seed=0, **HOST_CART), recorder=rec,
+                        evaluator=HostEvaluator("CartPole-v1", n_episodes=5,
+                                                max_steps=500))
+    t0 = time.perf_counter()
+    r = tr.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    waits = [c["host_wait_frac"] for c in rec.chunks]
+    if r.opt_steps < HOST_CART["max_opts"] or len(r.eval_history) != 3:
+        fail(f"host cartpole: {r.opt_steps} updates, evaluations {r.eval_history}")
+    result = {"updates": r.opt_steps, "env_steps": r.env_steps, "seconds": seconds,
+              "eval_history": r.eval_history, "best_score": r.best_score,
+              "host_wait_frac_median": statistics.median(waits),
+              "env_steps_per_s": r.samples_per_sec}
+    print(f"host cartpole learns: HostEnvTrainer.train() CartPole-v1 (C++ "
+          f"envpool), {HOST_CART['num_envs']} envs, {r.opt_steps} updates in "
+          f"{seconds:.1f} s; evaluations {r.eval_history}, best "
+          f"{r.best_score:.1f} (fails under {HOST_CART_MIN_SCORE:.0f})", flush=True)
+    print("host cartpole learns numbers: " + json.dumps(result), flush=True)
+    if r.best_score < HOST_CART_MIN_SCORE:
+        fail(f"host cartpole: best evaluation score {r.best_score} is under "
+             f"{HOST_CART_MIN_SCORE}")
+
+
+def async_pong_path(torch, dev) -> int:
+    """Phase 22: AsyncTrainer on Pong at bench.py's config (the uniform
+    path's), sync_interval from TrainerConfig: a warmup chunk and two update
+    chunks with a full-state checkpoint after each; at every chunk's start
+    the actor's parameters must equal, bitwise, the learner's at the last
+    sync; a second trainer resumed from the first checkpoint must end
+    bitwise equal.  Returns the gather launches of both runs."""
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import AsyncTrainer, TrainerConfig
+    from border_tpu_torch.utils import CheckpointManager
+    from border_tpu_torch.utils.checkpoint import pack_state
+
+    class CheckedAsync(AsyncTrainer):
+        """Clones the learner's parameters at every sync and checks the
+        actor's against the last clone at every chunk's start."""
+
+        synced, mismatches, chunk_starts = None, 0, 0
+
+        def _sync(self, policy, n_opts):
+            super()._sync(policy, n_opts)
+            self.synced = [t.detach().clone() for t in policy.state_dict().values()]
+            self.sync_steps = getattr(self, "sync_steps", []) + [n_opts]
+
+        def _restore_checkpoint_extra(self, ex, agent_state):
+            super()._restore_checkpoint_extra(ex, agent_state)
+            self.synced = list(ex["actor_params"].values())
+
+        def _dispatch(self, agent_state, *a, **kw):
+            if self._actor_params is not None:
+                self.chunk_starts += 1
+                actor = list(self._actor_params.state_dict().values())
+                if self.synced is None or not all(
+                        torch.equal(x.cpu(), y.cpu()) for x, y in zip(actor, self.synced)):
+                    self.mismatches += 1
+            return super()._dispatch(agent_state, *a, **kw)
+
+    upc = STEPS_PER_CHUNK * NUM_ENVS // OPT_INTERVAL
+    cfg = TrainerConfig(num_envs=NUM_ENVS, steps_per_chunk=STEPS_PER_CHUNK,
+                        batch_size=BATCH, opt_interval=OPT_INTERVAL,
+                        warmup_period=0, max_opts=2 * upc)
+
+    def build(manager):
+        rec = _chunk_recorder()
+        return CheckedAsync(
+            make("Pong-v0"), _pixel_dqn(),
+            FrameReplayBuffer(capacity=CAPACITY, num_envs=NUM_ENVS), cfg,
+            recorder=rec, checkpoint_manager=manager,
+            checkpoint_interval=upc if manager else 0), rec
+
+    work = tempfile.mkdtemp(prefix="border_smoke_async_")
+    try:
+        mgr = CheckpointManager(os.path.join(work, "whole"), max_to_keep=2)
+        tr, rec = build(mgr)
+        torch.cuda.reset_peak_memory_stats()
+        frame_gather.gather_frames.launches = 0
+        t0 = time.perf_counter()
+        r = tr.train(seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = frame_gather.gather_frames.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        chunks = [c for c in rec.chunks if "opt_steps_per_sec" in c]
+        if r.opt_steps != 2 * upc or launches != r.opt_steps or len(chunks) != 2:
+            fail(f"async pong: {launches} gather launches for {r.opt_steps} updates")
+        want_syncs = [0]
+        for n_opts in (upc, 2 * upc):
+            if n_opts - want_syncs[-1] >= cfg.sync_interval:
+                want_syncs.append(n_opts)
+        if tr.mismatches or tr.chunk_starts != 2 or tr.sync_steps != want_syncs:
+            fail(f"async pong: {tr.mismatches} of {tr.chunk_starts} chunk starts "
+                 f"acted on other parameters than the last sync's; syncs at "
+                 f"{tr.sync_steps}")
+        if not all(math.isfinite(c["loss"]) for c in chunks):
+            fail(f"async pong: losses {[c['loss'] for c in chunks]}")
+
+        os.makedirs(os.path.join(work, "killed"))
+        os.rename(os.path.dirname(mgr._path(upc)), os.path.join(work, "killed", str(upc)))
+        tr2, _ = build(None)
+        frame_gather.gather_frames.launches = 0
+        r2 = tr2.train(seed=0, resume_from=CheckpointManager(os.path.join(work, "killed")))
+        torch.cuda.synchronize()
+        launches2 = frame_gather.gather_frames.launches
+        if r2.opt_steps != r.opt_steps or launches2 != upc or tr2.mismatches:
+            fail(f"async pong: resumed run {r2.opt_steps} updates, {launches2} "
+                 f"launches, {tr2.mismatches} stale-parameter mismatches")
+        for part, a, b in (("agent_state", r.agent_state, r2.agent_state),
+                           ("buffer_state", r.buffer_state, r2.buffer_state),
+                           ("actor_params", tr._actor_params, tr2._actor_params)):
+            x = dict(_packed_leaves(pack_state(a)))
+            y = dict(_packed_leaves(pack_state(b)))
+            bad = [k for k in x if x.keys() != y.keys() or not (
+                _equal(x[k], y[k]) if torch.is_tensor(x[k]) else x[k] == y[k])]
+            if bad:
+                fail(f"async pong: the resumed run differs in {part}: {bad[:8]}")
+        result = {
+            "env_steps": r.env_steps, "updates": r.opt_steps, "seconds": seconds,
+            "gather_launches": launches, "resumed_gather_launches": launches2,
+            "sync_steps": tr.sync_steps, "sync_interval": cfg.sync_interval,
+            "env_steps_per_s_chunks": [c["samples_per_sec"] for c in chunks],
+            "updates_per_s_chunks": [c["opt_steps_per_sec"] for c in chunks],
+            "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
+            "max_memory_allocated_gb": peak_gb,
+        }
+        print(f"async pong path: AsyncTrainer.train() Pong, {NUM_ENVS} envs, batch "
+              f"{BATCH}, {r.opt_steps} updates in 2 update chunks, syncs at "
+              f"{tr.sync_steps} (sync_interval {cfg.sync_interval}); env-steps/s "
+              f"{chunks[-1]['samples_per_sec']:.1f}, updates/s "
+              f"{chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); the actor acted "
+              f"on the last sync's parameters at every chunk; frame_gather "
+              f"launches {launches} = updates; a trainer resumed from step {upc} "
+              f"ended bitwise equal", flush=True)
+        print("async pong path numbers: " + json.dumps(result), flush=True)
+        del tr2, r2
+        _free(torch)
+        print("async pong vs fused, in turns: " + json.dumps(
+            _async_vs_fused(torch, tr, r)), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches + launches2
 
 
 if __name__ == "__main__":

@@ -507,3 +507,82 @@ def test_actor_critic_update_on_card_matches_cpu_path(name):
     torch.testing.assert_close(res["cuda"][1], res["cpu"][1], rtol=1e-4, atol=1e-5)
     st = res["cuda"][2]
     assert st.n_opts == 1 and next(st.critic_params.parameters()).is_cuda
+
+
+@pytest.mark.cuda
+def test_host_pong_device_ring_equals_the_host_obs_on_card():
+    """HostEnvTrainer on the card over 8 C++ Pong envs: frame-only uploads
+    and the device stack ring give the host's observation bitwise at every
+    step (Pong has no lives), and the ring holds the frames pushed."""
+    import numpy as np
+
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs.native import NativeVecEnv
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import HostEnvTrainer, TrainerConfig
+
+    _cuda()
+    n = 8
+
+    class Recording(NativeVecEnv):
+        def reset(self):
+            self.log = [super().reset()]
+            return self.log[0]
+
+        def step_final(self, actions):
+            out = super().step_final(actions)
+            self.log.append(out[0])
+            return out
+
+    env = Recording("Pong-v0", n, seed=1)
+    agent = DQN(DQNConfig(model=lambda a: AtariCNN(a), lr=1e-4))
+    cfg = TrainerConfig(max_opts=2, warmup_period=35 * n, opt_interval=n // 2,
+                        batch_size=8, num_envs=n, steps_per_chunk=8, seed=0)
+    tr = HostEnvTrainer(env, agent, FrameReplayBuffer(64, n), cfg)
+    seen = []
+    select = tr._select
+    tr._select = lambda a, obs, g: (seen.append(obs.cpu()), select(a, obs, g))[1]
+    launches = frame_gather.gather_frames.launches
+    r = tr.train()
+    torch.cuda.synchronize()
+    assert r.opt_steps == 2 and frame_gather.gather_frames.launches == launches + 2
+    assert r.buffer_state.frames.is_cuda and len(seen) == r.buffer_state.total + 1
+    for i, obs in enumerate(seen):
+        np.testing.assert_array_equal(obs.numpy(), env.log[i], err_msg=f"step {i}")
+    # the ring's newest slot holds the newest pushed frame of every env
+    p = (r.buffer_state.total - 1) % 64
+    assert torch.equal(r.buffer_state.frames[:, p].cpu(), seen[-2][..., -1])
+
+
+@pytest.mark.cuda
+def test_async_trainer_actor_keeps_its_snapshot_on_card():
+    """AsyncTrainer on the card with a sync interval no run reaches: every
+    action is the initial parameters' greedy action while the learner's
+    parameters move."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import AsyncTrainer, TrainerConfig
+
+    _cuda()
+    agent = DQN(DQNConfig(hidden=(16,), eps_start=0.0, eps_final=0.0))
+    cfg = TrainerConfig(max_opts=24, warmup_period=64, opt_interval=16,
+                        batch_size=16, num_envs=8, steps_per_chunk=8, seed=3,
+                        sync_interval=10**9)
+    tr = AsyncTrainer(make("CartPole-v1"), agent, ReplayBuffer(512), cfg)
+    initial = agent.init(3, tr.vec.observation_space, tr.vec.action_space).params
+    acted = []
+    select = agent.select_action
+    agent.select_action = lambda state, obs, gen: (
+        acted.append((state.params, obs.clone())), select(state, obs, gen))[1]
+    r = tr.train()
+    torch.cuda.synchronize()
+    learner = r.agent_state.params
+    assert len(acted) == 7 * 8 and next(learner.parameters()).is_cuda
+    assert not all(torch.equal(p, q) for p, q in
+                   zip(learner.parameters(), initial.parameters()))
+    for module, obs in acted:
+        assert module is tr._actor_params and module is not learner
+        assert all(torch.equal(p, q) for p, q in
+                   zip(module.parameters(), initial.parameters()))

@@ -18,7 +18,8 @@ from border_tpu_torch.core import VecEnv, spaces
 from border_tpu_torch.envs import make
 from border_tpu_torch.models import AtariCNN
 from border_tpu_torch.replay import FrameReplayBuffer, ReplayBuffer
-from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
+from border_tpu_torch.train import (AsyncTrainer, Evaluator, HostEnvTrainer,
+                                    Trainer, TrainerConfig)
 
 
 def test_port_imports_no_jax_and_nothing_of_border_tpu():
@@ -38,7 +39,7 @@ def test_port_imports_no_jax_and_nothing_of_border_tpu():
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 47  # every submodule was imported
+    assert int(out.stdout.split()[-1]) >= 53  # every submodule was imported
 
 
 def test_port_sources_name_no_jax_module_in_an_import():
@@ -48,14 +49,16 @@ def test_port_sources_name_no_jax_module_in_an_import():
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "border_tpu_torch").rglob("*.py")) + [
         root / "chip_smoke.py"]
-    assert len(files) >= 51
+    assert len(files) >= 57
     for new in ("models/mlp.py", "models/iqn.py", "agents/iqn.py",
                 "envs/classic_control.py", "envs/breakout.py",
                 "envs/seaquest.py", "envs/freeway.py",
                 "envs/space_invaders.py", "agents/gaussian.py",
                 "agents/sac.py", "agents/bc.py", "agents/awac.py",
                 "agents/iql.py", "envs/reacher.py", "data/datasets.py",
-                "data/minari.py", "data/__init__.py", "train/offline.py"):
+                "data/minari.py", "data/__init__.py", "train/offline.py",
+                "envs/native.py", "envs/py_env.py", "envs/gym_bridge.py",
+                "envs/ale.py", "train/host.py", "train/async_trainer.py"):
         assert root / "border_tpu_torch" / new in files
     banned = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|border_tpu)(?:[.\s]|$)",
@@ -138,6 +141,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     for name in ("sac_state", "bc_state", "awac_state", "iql_state"):
         with pytest.raises(RuntimeError, match="CUDA"):
             getattr(convert, name)(None, types.SimpleNamespace(), obs, act)
+    # the host-env trainer (before it starts any host env) and the
+    # decoupled actor-learner
+    for build in (
+            lambda: HostEnvTrainer("CartPole-v1", DQN(), ReplayBuffer(8, device="cpu"),
+                                   TrainerConfig(num_envs=2)),
+            lambda: AsyncTrainer(cart, DQN(), ReplayBuffer(8, device="cpu"),
+                                 TrainerConfig(num_envs=2))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
     # asked for explicitly, the CPU works
     assert VecEnv(env, 2, device="cpu").device == torch.device("cpu")
     assert FrameReplayBuffer(8, 2, device="cpu").init().frames.device.type == "cpu"
