@@ -23,6 +23,8 @@ dicts, which ``load_state_dict`` copies onto the module's device).  The module i
   state, field by field (both sides are batched ``[N, ...]``).
 - ``ReplayBufferState`` → the port's flat buffer state (``cursor`` and
   ``size`` become host ints).
+- a DQN or IQN agent the JAX package saved with ``Agent.save`` (the
+  ``.npz`` and the text of its ``PyTreeDef``): :func:`load_jax_policy`.
 - ``FrameReplayState`` → the port's buffer state: the ``(R, 128)`` tile
   padding of each stored frame is stripped back to ``H × W``; the slice
   mode's mirror slots stay on the frames only; a PER state's ``tree``
@@ -32,6 +34,7 @@ dicts, which ``load_state_dict`` copies onto the module's device).  The module i
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -404,3 +407,176 @@ def replay_state(js, device: DeviceLike = None) -> ReplayBufferState:
         size=int(np.asarray(js.size)),
         tree=None if tree is None else sum_tree_state(tree, device),
     )
+
+
+# -- a JAX-saved agent (``Agent.save``: <name>.npz + <name>.treedef.txt) ------
+
+def _parse_treedef(text: str):
+    """The structure of a ``str(PyTreeDef)``: dicts, lists, tuples, ``None``
+    and ``("custom", name, children)`` for custom nodes (a flax struct, a
+    namedtuple), with each leaf ``*`` replaced by its flatten index."""
+    pos = 0
+    n_leaves = 0
+
+    def skip():
+        nonlocal pos
+        while pos < len(text) and text[pos] in " \n":
+            pos += 1
+
+    def expect(token):
+        nonlocal pos
+        skip()
+        if not text.startswith(token, pos):
+            raise ValueError(f"treedef: expected {token!r} at {pos}: "
+                             f"{text[pos:pos + 40]!r}")
+        pos += len(token)
+
+    def balanced(open_, close):
+        """The text up to the ``close`` that balances an ``open_`` read."""
+        nonlocal pos
+        depth, start = 1, pos
+        while depth:
+            if pos >= len(text):
+                raise ValueError("treedef: unbalanced brackets")
+            depth += {open_: 1, close: -1}.get(text[pos], 0)
+            pos += 1
+        return text[start:pos - 1]
+
+    def items(close):
+        out = []
+        skip()
+        while not text.startswith(close, pos):
+            out.append(node())
+            skip()
+            if text.startswith(",", pos):
+                expect(",")
+                skip()
+        expect(close)
+        return out
+
+    def node():
+        nonlocal pos, n_leaves
+        skip()
+        if text.startswith("*", pos):
+            pos += 1
+            n_leaves += 1
+            return n_leaves - 1
+        if text.startswith("None", pos):
+            pos += 4
+            return None
+        if text.startswith("CustomNode(", pos):
+            pos += len("CustomNode(")
+            name_end = text.index("[", pos)
+            name = text[pos:name_end]
+            pos = name_end + 1
+            meta = balanced("[", "]")
+            expect(",")
+            expect("[")
+            children = items("]")
+            expect(")")
+            # a namedtuple's custom node names its class in the metadata
+            return ("custom", meta if name == "namedtuple" else name, children)
+        if text.startswith("{", pos):
+            pos += 1
+            out = {}
+            skip()
+            while not text.startswith("}", pos):
+                expect("'")
+                key_end = text.index("'", pos)
+                key = text[pos:key_end]
+                pos = key_end + 1
+                expect(":")
+                out[key] = node()
+                skip()
+                if text.startswith(",", pos):
+                    expect(",")
+                    skip()
+            expect("}")
+            return out
+        if text.startswith("[", pos):
+            pos += 1
+            return items("]")
+        if text.startswith("(", pos):
+            pos += 1
+            return tuple(items(")"))
+        raise ValueError(f"treedef: unexpected {text[pos:pos + 40]!r}")
+
+    expect("PyTreeDef(")
+    tree = node()
+    expect(")")
+    return tree, n_leaves
+
+
+def _fill_leaves(tree, arrays):
+    """``tree`` with each leaf index replaced by ``arrays[index]``."""
+    if isinstance(tree, int):
+        return arrays[tree]
+    if isinstance(tree, dict):
+        return {k: _fill_leaves(v, arrays) for k, v in tree.items()}
+    raise ValueError(f"expected a parameter dict, found {type(tree).__name__}")
+
+
+# the JAX agent states this loader knows: class name and its fields in order
+_JAX_STATES = {
+    "dqn": ("DQNState",
+            ("params", "target_params", "opt_state", "n_opts", "n_samples")),
+    "iqn": ("IQNState",
+            ("params", "target_params", "opt_state", "n_opts", "n_samples")),
+}
+
+
+def load_jax_policy(agent, path: str, obs_space, act_space,
+                    device: DeviceLike = None):
+    """A state of the port's ``agent`` (DQN or IQN) with the networks and
+    counters of an agent the JAX package saved with ``Agent.save``:
+    ``<path>/<agent.name>.npz`` (positional ``arr_i``, in
+    ``jax.tree.flatten`` order) and ``<path>/<agent.name>.treedef.txt``
+    beside it, whose leaves are in the same order.
+
+    Carries what acting needs: the online and target networks (each array
+    checked against the port's template for its shape) and ``n_opts`` /
+    ``n_samples``.  The optimizer is a fresh one; the JAX optimizer's
+    moments are not read, so the state acts like the saved agent but does
+    not go on training like it.  Raises ``ValueError`` on an agent or a
+    saved layout it does not know."""
+    if agent.name not in _JAX_STATES:
+        raise ValueError(f"no JAX layout known for agent {agent.name!r} "
+                         f"(known: {sorted(_JAX_STATES)})")
+    cls_name, fields = _JAX_STATES[agent.name]
+    with open(os.path.join(path, f"{agent.name}.treedef.txt")) as f:
+        tree, n_leaves = _parse_treedef(f.read())
+    if not (isinstance(tree, tuple) and len(tree) == 3 and tree[0] == "custom"
+            and tree[1] == cls_name and len(tree[2]) == len(fields)):
+        raise ValueError(f"{path}: the saved state is not a {cls_name} of "
+                         f"fields {fields}")
+    children = dict(zip(fields, tree[2]))
+    with np.load(os.path.join(path, f"{agent.name}.npz")) as data:
+        if len(data.files) != n_leaves:
+            raise ValueError(f"{path}: {len(data.files)} arrays for "
+                             f"{n_leaves} leaves of the treedef")
+        arrays = [data[f"arr_{i}"] for i in range(n_leaves)]
+
+    st = agent.init(0, obs_space, act_space, device=device)
+    for name in ("params", "target_params"):
+        net = getattr(st, name)
+        template = net.state_dict()
+        try:
+            loaded = net_state_dict(net, _fill_leaves(children[name], arrays))
+        except KeyError as e:
+            raise ValueError(f"{path}: {name} lacks {e} of the port's "
+                             f"{type(net).__name__}") from e
+        if loaded.keys() != template.keys():
+            raise ValueError(f"{path}: {name} holds {sorted(loaded)}, the "
+                             f"port's {type(net).__name__} {sorted(template)}")
+        for k, v in loaded.items():
+            if v.shape != template[k].shape:
+                raise ValueError(f"{path}: {name} {k} has shape "
+                                 f"{tuple(v.shape)}, the port's "
+                                 f"{tuple(template[k].shape)}")
+        net.load_state_dict(loaded)
+    for name in ("n_opts", "n_samples"):
+        leaf = children[name]
+        if not isinstance(leaf, int) or arrays[leaf].shape != ():
+            raise ValueError(f"{path}: {name} is not a scalar leaf")
+        setattr(st, name, int(arrays[leaf]))
+    return st

@@ -138,12 +138,16 @@ class MinariDataset:
                     f"Minari-format / committed local corpora",
                     stacklevel=2,
                 )
-        h5 = _find_minari_hdf5(dataset_id)
-        if h5 is not None:
-            return cls._from_minari_hdf5(dataset_id, h5, converter)
+        # any failure of the on-disk fallbacks chains the package's error
+        # (None without the package), whichever of them raised
         try:
+            h5 = _find_minari_hdf5(dataset_id)
+            if h5 is not None:
+                return cls._from_minari_hdf5(dataset_id, h5, converter)
             return cls._from_local(dataset_id)  # raises with local listing
-        except KeyError as e:
+        except Exception as e:
+            if pkg_err is None:
+                raise
             raise e from pkg_err
 
     @classmethod

@@ -1,5 +1,5 @@
-"""Observability: Record values, aggregation, and recorder sinks
-(≙ border_tpu/record)."""
+"""Observability: Record values, aggregation, and recorder sinks:
+TensorBoard event files and MLflow tracking (≙ border_tpu/record)."""
 
 from border_tpu_torch.record.record import Record, RecordStorage  # noqa: F401
 from border_tpu_torch.record.recorder import (  # noqa: F401
@@ -8,3 +8,4 @@ from border_tpu_torch.record.recorder import (  # noqa: F401
     Recorder,
     TensorboardRecorder,
 )
+from border_tpu_torch.record.mlflow import MlflowClient, MlflowRecorder  # noqa: F401

@@ -39,6 +39,8 @@ from typing import Optional
 
 import torch
 
+from border_tpu_torch.envs.pixel import true_div
+
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -124,8 +126,12 @@ class SumTree:
         if u is None:
             u = torch.rand((batch_size,), generator=gen, dtype=torch.float32,
                            device=sum_t.device)
+        # divided by a tensor: CUDA multiplies by a Python divisor's
+        # reciprocal, which strays from the CPU's division at batch sizes
+        # that are not powers of two
         mass = (torch.arange(batch_size, dtype=torch.float32,
-                             device=sum_t.device) + u) * (sum_t[1] / batch_size)
+                             device=sum_t.device) + u) * true_div(
+                                 sum_t[1], batch_size)
         nodes = torch.ones((batch_size,), dtype=torch.int64, device=sum_t.device)
         pairs = sum_t.view(self.capacity, 2)  # node n's children: pairs[n]
         for _ in range(self.depth):

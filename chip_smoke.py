@@ -56,14 +56,16 @@ Phases, one line each (any failure exits non-zero with no result line):
 10. IQN on Seaquest at the width of the seaquest learning-gate config (512
     envs, batch 256, a 512 x 512-frame ring, psi = the Atari CNN's 512
     features, 64 cosines, uniform8 / uniform8 / const32 quantile draws):
-    one warmup chunk, two update chunks of 256 updates and one evaluation
-    (10 episodes, 200 steps), then phase 7 for this path;
+    one warmup chunk, one update chunk of 256 updates (two before phases
+    23-25 were added) and one evaluation (10 episodes, 200 steps), then
+    phase 7 for this path;
 11. one warmup chunk and one update chunk of DQN on Breakout, Freeway and
     Space Invaders at their gate configs' width (512 envs, batch 512; the
     last two with n_step=3), each with its kernel launches per env step;
 12. DQN on CartPole through the flat replay buffer at the width of
     bench.py's fused config (4096 envs, 64 steps a chunk, batch 512, 1024
-    updates a chunk): one warmup chunk and two update chunks, then phase 7;
+    updates a chunk): one warmup chunk and one update chunk (two before
+    phases 23-25 were added), then phase 7;
 13. the cartpole learning-gate config (128 envs, n-step 3, an evaluation
     of 20 episodes every 500 updates), one seed, cut to 6,000 of its 12,000
     updates: the run fails under a best evaluation score of 100;
@@ -78,16 +80,19 @@ Phases, one line each (any failure exits non-zero with no result line):
     2,000 updates: the run fails under a best normalized score of 50
     (the gate's target is 76);
 16, 17. the awac_offline and iql_offline configs at full width over the
-    same corpus, to their first evaluation at 2,000 updates.
+    same corpus, cut to 1,000 updates with their first evaluation moved
+    there (the gate's is at 2,000, where these phases stopped before
+    phases 23-25 were added).
     Each offline phase ends with one chunk of 250 updates timed and 32
     traced;
 18. the pong_host config through HostEnvTrainer at its width (256 C++
     envpool Pong envs, batch 512, a 256 x 1024-frame ring, 4 updates an
-    iteration): the gate's warmup of 50,000 env steps, 1,024 updates,
-    evaluations at 512 and 1,024 updates (5 episodes cut to 200 of the
+    iteration): the gate's warmup of 50,000 env steps, 512 updates,
+    evaluations at 256 and 512 updates (5 episodes cut to 200 of the
     gate's 3,000 steps) and a full-state checkpoint at the end; a second
     trainer resumed from it must restore the ring and the agent bitwise
-    and go on (counters, replay, evaluation index) for 256 updates.  The
+    and go on (counters, replay, evaluation index) for 128 updates (1,024
+    and 256 before phases 23-25 were added).  The
     gather's launches must equal the updates.  Then the iteration's parts
     timed apart and 16 pipelined iterations traced;
 19. the breakout_host config the same way: warmup and 256 updates;
@@ -103,7 +108,28 @@ Phases, one line each (any failure exits non-zero with no result line):
     warmup chunk and two update chunks with a checkpoint after each; the
     actor's parameters at every chunk's start must equal the learner's at
     the last sync, bitwise, and a trainer resumed from the first checkpoint
-    must end bitwise equal (actor parameters included).
+    must end bitwise equal (actor parameters included);
+23. the utilities on the card: export_policy of a DQN-AtariCNN state at
+    the main path's width and of an IQN state at the Seaquest path's,
+    each run by NumpyMLPPolicy on 64 observations of its game: the numpy
+    actions must equal the port's float32 select_action_eval (TF32 off)
+    wherever the top-2 margin exceeds 1e-4 of the values' scale;
+    profile_trace must write a trace with CUDA kernel events; run_elastic
+    over a short CartPole Trainer with one injected crash must end bitwise
+    equal (agent and replay state, counters) to the run without it;
+24. the committed JAX-trained Pong policy (artifacts/pong_model/best)
+    loaded by convert.load_jax_policy into the port's bf16 AtariCNN and
+    evaluated by the dqn_pong example's evaluator (10 episodes, 3,000
+    steps): fails under a mean return of 18.0, the gate's Pong target;
+    then play_pong's main plays 512 steps into a GIF, read back;
+25. the examples through main(argv) at their default width: dqn_pong
+    (--tensorboard, the 50,000-step warmup and one update chunk; the
+    gather's launches must equal its updates), dqn_cartpole (an agent
+    from a YAML config, --mlflow against a stub server on 127.0.0.1,
+    --checkpoint-interval, then --resume), convert_policy (512 SAC
+    updates, export, numpy-only deployment on the C++ Pendulum pool) and
+    offline_fetch_reacher --dataset fetch-reacher-medium-v0 (250 IQL
+    updates), one line each with its seconds.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -161,8 +187,10 @@ OFFLINE_GATE_OPTS = {"bc_offline": 12_000, "awac_offline": 8_000,
                      "iql_offline": 12_000}
 OFFLINE_BATCH, OFFLINE_EVAL_INTERVAL, OFFLINE_UPDATES_PER_CHUNK = 256, 2_000, 250
 OFFLINE_EVAL_EPISODES, OFFLINE_EVAL_STEPS = 200, 50
-# awac_offline and iql_offline run to their first evaluation
-OFFLINE_CUT = 2_000
+# awac_offline and iql_offline are cut to OFFLINE_CUT updates, their first
+# evaluation moved there (the gate's first is at 2,000), to keep the
+# script within its time
+OFFLINE_CUT = 1_000
 # bc_offline runs whole and fails under BC_MIN_SCORE (normalized)
 BC_TARGET, BC_MIN_SCORE = 76.0, 50.0
 # the host-env learning-gate configs (benchmarks/learning.py:181-223,
@@ -184,14 +212,18 @@ HOST_EVAL = {"pong_host": (5, 3_000), "breakout_host": (5, 6_750),
              "pendulum_host": (10, 200)}
 # the card's runs: updates after the gate's warmup; pong_host's evaluations
 # are cut to 200 of the gate's 3,000 steps and its resumed run goes on for
-# HOST_RESUME_UPDATES more
-HOST_UPDATES = {"pong_host": 1_024, "breakout_host": 256, "pendulum_host": 512}
-PONG_HOST_EVAL_STEPS, HOST_RESUME_UPDATES = 200, 256
+# HOST_RESUME_UPDATES more (both cut in half to keep the script within its
+# time)
+HOST_UPDATES = {"pong_host": 512, "breakout_host": 256, "pendulum_host": 512}
+PONG_HOST_EVAL_STEPS, HOST_RESUME_UPDATES = 200, 128
 # native CartPole through HostEnvTrainer, the JAX package's own host-path
 # learning test (tests/test_host_trainer.py:40-72); fails under its 100
 HOST_CART = dict(max_opts=1_500, warmup_period=500, opt_interval=16,
                  batch_size=64, num_envs=32, steps_per_chunk=8, eval_interval=500)
 HOST_CART_MIN_SCORE = 100.0
+# the JAX-trained Pong policy must reach the gate's Pong target on the card;
+# play_pong then plays PLAY_STEPS steps into a GIF
+PONG_TARGET, PLAY_STEPS = 18.0, 512
 
 
 def fail(msg: str) -> None:
@@ -393,6 +425,11 @@ def main() -> None:
 
     # -- 22. the decoupled actor-learner on Pong ----------------------------------
     launches += timed("22 async pong", async_pong_path, torch, dev)
+
+    # -- 23-25. the utilities, the JAX-trained policy, the examples ---------------
+    timed("23 utilities", utilities_on_card, torch, dev)
+    timed("24 jax pong policy", jax_pong_policy, torch, dev)
+    launches += timed("25 examples", examples_on_card, torch, dev)
 
     kernels = [{
         "name": "frame_gather",
@@ -822,6 +859,17 @@ def _equal(a, b) -> bool:
                                           b.reshape(-1).split(1 << 28)))
 
 
+def _state_diff(torch, a, b):
+    """Paths where two states packed by ``pack_state`` differ."""
+    from border_tpu_torch.utils.checkpoint import pack_state
+
+    a, b = dict(_packed_leaves(pack_state(a))), dict(_packed_leaves(pack_state(b)))
+    if a.keys() != b.keys():
+        return sorted(a.keys() ^ b.keys())
+    return [k for k in a if not (
+        _equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k])]
+
+
 def _chunk_recorder():
     from border_tpu_torch.record import NullRecorder
 
@@ -851,7 +899,6 @@ def per_path(torch, dev) -> int:
     from border_tpu_torch.replay import FrameReplayBuffer, PerConfig
     from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
     from border_tpu_torch.utils import CheckpointManager
-    from border_tpu_torch.utils.checkpoint import pack_state
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -991,10 +1038,7 @@ def per_path(torch, dev) -> int:
         if r2.buffer_state.total != r.buffer_state.total:
             fail("resumed run: another number of pushes")
         for name in ("agent_state", "buffer_state"):
-            a = dict(_packed_leaves(pack_state(getattr(r, name))))
-            b = dict(_packed_leaves(pack_state(getattr(r2, name))))
-            bad = [k for k in a if a.keys() != b.keys() or not (
-                _equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k])]
+            bad = _state_diff(torch, getattr(r, name), getattr(r2, name))
             if bad:
                 fail(f"resumed run differs from the uninterrupted run in "
                      f"{name}: {bad[:8]}")
@@ -1179,7 +1223,7 @@ def seaquest_path(torch, dev) -> int:
                    max_steps=EVAL_MAX_STEPS)
     t0 = time.perf_counter()
     tr, r, rec, launches, result = _train_pixel(
-        torch, "seaquest-iqn", "Seaquest-v0", agent, SEAQUEST_BATCH, 2, 1,
+        torch, "seaquest-iqn", "Seaquest-v0", agent, SEAQUEST_BATCH, 1, 1,
         evaluator=ev)
     evals = [w_ for w_ in rec.written if "Episode return" in w_]
     if len(r.eval_history) != 1 or len(evals) != 1 or (
@@ -1225,7 +1269,7 @@ def game_paths(torch, dev) -> int:
 
 def cartpole_fused_path(torch, dev) -> None:
     """Phase 12: bench.py's fused CartPole config through Trainer.train()
-    with the flat replay buffer: a warmup chunk and two update chunks."""
+    with the flat replay buffer: a warmup chunk and one update chunk."""
     from border_tpu_torch.agents import DQN, DQNConfig
     from border_tpu_torch.envs import make
     from border_tpu_torch.replay import ReplayBuffer
@@ -1238,7 +1282,7 @@ def cartpole_fused_path(torch, dev) -> None:
         make("CartPole-v1"), agent, ReplayBuffer(capacity=CART_CAPACITY),
         TrainerConfig(num_envs=CART_ENVS, steps_per_chunk=CART_STEPS,
                       batch_size=BATCH, opt_interval=CART_OPT_INTERVAL,
-                      warmup_period=0, max_opts=2 * upc),
+                      warmup_period=0, max_opts=upc),
         recorder=rec)
     before = [p.detach().clone() for p in agent.init(
         0, tr.vec.observation_space, tr.vec.action_space).params.parameters()]
@@ -1247,15 +1291,15 @@ def cartpole_fused_path(torch, dev) -> None:
     chunks = [c for c in rec.chunks if "opt_steps_per_sec" in c]
     losses = [c["loss"] for c in chunks]
     after = list(r.agent_state.params.parameters())
-    if (tr.updates_per_chunk != upc or r.opt_steps != 2 * upc
-            or len(chunks) != 2 or not all(map(math.isfinite, losses))):
+    if (tr.updates_per_chunk != upc or r.opt_steps != upc
+            or len(chunks) != 1 or not all(map(math.isfinite, losses))):
         fail(f"cartpole-fused: {r.opt_steps} updates, losses {losses}")
     if not all(torch.isfinite(p).all() for p in after) or all(
             torch.equal(a, p.detach()) for a, p in zip(before, after)):
         fail("cartpole-fused: parameters not finite or unchanged")
-    # the ring wrapped: 3 chunks push 786,432 transitions into 65,536 slots
+    # the ring wrapped: 2 chunks push 524,288 transitions into 65,536 slots
     st = r.buffer_state
-    if not (st.size == CART_CAPACITY and st.cursor == (3 * CART_STEPS * CART_ENVS)
+    if not (st.size == CART_CAPACITY and st.cursor == (2 * CART_STEPS * CART_ENVS)
             % CART_CAPACITY and st.data.obs.is_cuda
             and tuple(st.data.obs.shape) == (CART_CAPACITY, 4)):
         fail(f"cartpole-fused: buffer size {st.size}, cursor {st.cursor}")
@@ -1270,7 +1314,7 @@ def cartpole_fused_path(torch, dev) -> None:
     }
     print(f"cartpole-fused path: Trainer.train() CartPole-v1, {CART_ENVS} envs, "
           f"batch {BATCH}, flat buffer of {CART_CAPACITY}, {r.opt_steps} updates "
-          f"in 2 update chunks; env-steps/s {chunks[-1]['samples_per_sec']:.1f}, "
+          f"in 1 update chunk; env-steps/s {chunks[-1]['samples_per_sec']:.1f}, "
           f"updates/s {chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); final "
           f"loss {losses[-1]:.6g}", flush=True)
     print("cartpole-fused path numbers: " + json.dumps(result), flush=True)
@@ -1438,6 +1482,7 @@ def offline_path(torch, dev, name: str, max_opts: int, min_score=None) -> None:
         if not os.path.isfile(path):
             fail(f"{name}: the corpus file {path} is missing")
     md, agent, cfg, evaluator = offline_config(name, dev, max_opts)
+    cfg = cfg.replace(eval_interval=min(cfg.eval_interval, max_opts))
     buffer = ReplayBuffer(capacity=md.get_num_transitions())
     buf_state = md.create_replay_buffer(buffer)
     if not (buf_state.size == 25_000 and buf_state.data.obs.is_cuda
@@ -1465,7 +1510,7 @@ def offline_path(torch, dev, name: str, max_opts: int, min_score=None) -> None:
         fail(f"{name}: a network is not finite or not on the card")
     evals = [w for w in rec.written if "Episode return" in w]
     want_keys = EVAL_KEYS | {"Normalized score"}
-    if len(evals) != max_opts // OFFLINE_EVAL_INTERVAL or len(r.eval_history) != len(
+    if len(evals) != max_opts // cfg.eval_interval or len(r.eval_history) != len(
             evals) or any({k for k, _ in w} != want_keys for w in evals):
         fail(f"{name}: evaluation records {[dict(w.items()) for w in evals]}")
     scores = [w["Normalized score"] for w in evals]
@@ -1907,7 +1952,6 @@ def pong_host_path(torch, dev) -> int:
     from border_tpu_torch.ops import frame_gather
     from border_tpu_torch.train import HostEnvTrainer
     from border_tpu_torch.utils import CheckpointManager
-    from border_tpu_torch.utils.checkpoint import pack_state
 
     name, updates = "pong_host", HOST_UPDATES["pong_host"]
     work = tempfile.mkdtemp(prefix="border_smoke_host_")
@@ -1952,10 +1996,7 @@ def pong_host_path(torch, dev) -> int:
             torch.cuda.synchronize()
             restore_s.append(time.perf_counter() - t0)
             for part in ("agent_state", "buffer_state"):
-                x = dict(_packed_leaves(pack_state(getattr(r, part))))
-                y = dict(_packed_leaves(pack_state(out[part])))
-                bad = [k for k in x if x.keys() != y.keys() or not (
-                    _equal(x[k], y[k]) if torch.is_tensor(x[k]) else x[k] == y[k])]
+                bad = _state_diff(torch, getattr(r, part), out[part])
                 if bad:
                     fail(f"{name}: the restored {part} differs from the saved "
                          f"one in {bad[:8]}")
@@ -2131,7 +2172,6 @@ def async_pong_path(torch, dev) -> int:
     from border_tpu_torch.replay import FrameReplayBuffer
     from border_tpu_torch.train import AsyncTrainer, TrainerConfig
     from border_tpu_torch.utils import CheckpointManager
-    from border_tpu_torch.utils.checkpoint import pack_state
 
     class CheckedAsync(AsyncTrainer):
         """Clones the learner's parameters at every sync and checks the
@@ -2209,10 +2249,7 @@ def async_pong_path(torch, dev) -> int:
         for part, a, b in (("agent_state", r.agent_state, r2.agent_state),
                            ("buffer_state", r.buffer_state, r2.buffer_state),
                            ("actor_params", tr._actor_params, tr2._actor_params)):
-            x = dict(_packed_leaves(pack_state(a)))
-            y = dict(_packed_leaves(pack_state(b)))
-            bad = [k for k in x if x.keys() != y.keys() or not (
-                _equal(x[k], y[k]) if torch.is_tensor(x[k]) else x[k] == y[k])]
+            bad = _state_diff(torch, a, b)
             if bad:
                 fail(f"async pong: the resumed run differs in {part}: {bad[:8]}")
         result = {
@@ -2240,6 +2277,399 @@ def async_pong_path(torch, dev) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches + launches2
+
+
+def _numpy_values(pol, obs):
+    """The values the numpy policy takes its argmax of (per action)."""
+    import numpy as np
+
+    m = pol.meta
+    x = np.asarray(obs, np.float32)
+    if m["kind"] == "iqn_argmax":
+        return pol._iqn_q(x)
+    if m["kind"] == "cnn_argmax":
+        x = pol._cnn(x, "", m["conv_strides"], m["scale"])
+    return pol._dense_stack(x, pol.layers)
+
+
+def utilities_on_card(torch, dev) -> None:
+    """Phase 23: the export of a DQN-AtariCNN state at the main path's width
+    and of an IQN state at the Seaquest path's width, each run by the numpy
+    policy against the port's float32 greedy action on the card (TF32 off);
+    a profiler trace with CUDA kernel events; an elastic CartPole run that
+    recovers from one injected crash, bitwise equal to the run without it."""
+    import functools
+
+    import numpy as np
+
+    from border_tpu_torch.agents import DQN, IQN, DQNConfig, IQNConfig
+    from border_tpu_torch.core.env import VecEnv
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig, run_elastic
+    from border_tpu_torch.utils import (CheckpointManager, NumpyMLPPolicy,
+                                        export_policy, profile_trace)
+
+    work = tempfile.mkdtemp(prefix="border_smoke_utils_")
+    out = {}
+    try:
+        # -- export: numpy policy vs the port's float32 greedy action -------
+        cnn32 = functools.partial(AtariCNN, dtype=torch.float32)
+        cases = (
+            ("dqn", "Pong-v0", DQN(DQNConfig(model=lambda n: cnn32(out_dim=n)))),
+            ("iqn", "Seaquest-v0", IQN(IQNConfig(
+                psi_fn=functools.partial(cnn32, out_dim=0, skip_linear=True),
+                feature_dim=512, n_cos=64, hidden=(512,),
+                sample_percents_act="const32"))))
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for label, env_id, agent in cases:
+                vec = VecEnv(make(env_id), 64)
+                st = agent.init(0, vec.observation_space, vec.action_space)
+                vs = vec.reset(0)
+                g = torch.Generator(device=dev).manual_seed(0)
+                for _ in range(40):  # 40 random-action steps into the game
+                    a = torch.randint(0, vec.action_space.n, (64,), generator=g,
+                                      device=dev, dtype=torch.int32)
+                    _, vs = vec.step(vs, a)
+                obs = vs.obs
+                path = export_policy(agent, st, os.path.join(work, label))
+                pol = NumpyMLPPolicy(path)
+                obs_np = obs.cpu().numpy()
+                want = pol(obs_np)
+                got = agent.select_action_eval(st, obs).cpu().numpy()
+                v = np.sort(_numpy_values(pol, obs_np), axis=-1)
+                clear = v[:, -1] - v[:, -2] > 1e-4 * max(float(np.abs(v).max()), 1.0)
+                if clear.sum() < 32 or not np.array_equal(got[clear], want[clear]):
+                    fail(f"export ({label}): the numpy policy's actions differ "
+                         f"from the port's float32 greedy actions on the card "
+                         f"({int(clear.sum())} of 64 past the margin)")
+                out[f"export_{label}"] = {
+                    "kind": pol.meta["kind"], "obs": list(obs_np.shape),
+                    "actions_compared": int(clear.sum()),
+                    "equal_everywhere": bool(np.array_equal(got, want))}
+                del vec, vs, st
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        # -- profile_trace: a Chrome trace with the card's kernels ----------
+        trace_dir = os.path.join(work, "trace")
+        net = AtariCNN(6).to(dev)
+        x = torch.randint(0, 256, (512, 84, 84, 4), device=dev, dtype=torch.uint8)
+        with profile_trace(trace_dir):
+            for _ in range(3):
+                net(x)
+            torch.cuda.synchronize()
+        (trace_file,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace_file)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels:
+            fail("profile_trace: the trace holds no CUDA kernel event")
+        out["profile_trace_kernel_events"] = len(kernels)
+
+        # -- run_elastic: one injected crash, bitwise the uninterrupted run --
+        cfg = TrainerConfig(max_opts=192, warmup_period=0, opt_interval=64,
+                            batch_size=64, num_envs=128, steps_per_chunk=32,
+                            eval_interval=10**9, seed=3)  # 64 updates a chunk
+        crashes = [1]
+
+        class CrashingTrainer(Trainer):
+            def _chunk(self, *a, **kw):
+                res = super()._chunk(*a, **kw)
+                if crashes[0] and self.checkpoint_manager.latest_step() is not None:
+                    crashes[0] -= 1
+                    raise RuntimeError("injected fault")
+                return res
+
+        def trainer(mgr, cls=Trainer):
+            return cls(make("CartPole-v1"), DQN(DQNConfig(hidden=(64, 64))),
+                       ReplayBuffer(16_384), cfg, checkpoint_manager=mgr,
+                       checkpoint_interval=64)
+
+        attempts = []
+
+        def make_trainer(mgr):
+            attempts.append(mgr.latest_step())
+            return trainer(mgr, CrashingTrainer)
+
+        want = trainer(CheckpointManager(os.path.join(work, "whole"))).train()
+        got = run_elastic(make_trainer, os.path.join(work, "elastic"),
+                          max_restarts=1)
+        torch.cuda.synchronize()
+        bad = (_state_diff(torch, got.agent_state, want.agent_state)
+               + _state_diff(torch, got.buffer_state, want.buffer_state))
+        if attempts != [None, 64] or bad or (got.opt_steps, got.env_steps) != (
+                want.opt_steps, want.env_steps):
+            fail(f"run_elastic: attempts from {attempts}; the recovered run "
+                 f"differs from the uninterrupted one in {bad[:8]}")
+        out["elastic"] = {"attempts_from_step": attempts, "updates": got.opt_steps,
+                          "bitwise_equal": True}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("utilities: the numpy export acts as the port's float32 greedy "
+          "policy (DQN at Pong's width, IQN at Seaquest's); profile_trace "
+          "traced the card's kernels; run_elastic recovered from a crash "
+          "bitwise: " + json.dumps(out), flush=True)
+
+
+def gif_frames(data: bytes):
+    """(width, height, number of images) of a GIF89a file."""
+    import struct
+
+    if data[:6] != b"GIF89a" or data[-1:] != b";":
+        fail("the GIF lacks its header or trailer")
+    w, h, flags = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    n = 0
+
+    def skip_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # extension: introducer, label, sub-blocks
+            pos = skip_blocks(pos + 2)
+        elif data[pos] == 0x2C:  # image: descriptor, LZW code size, data
+            n += 1
+            lflags = data[pos + 9]
+            pos += 10 + (3 << ((lflags & 7) + 1) if lflags & 0x80 else 0)
+            pos = skip_blocks(pos + 1)
+        else:
+            fail(f"the GIF has an unknown block 0x{data[pos]:02x} at {pos}")
+    return w, h, n
+
+
+def jax_pong_policy(torch, dev) -> None:
+    """Phase 24: the committed JAX-trained Pong policy, loaded by
+    load_jax_policy into the port's bf16 AtariCNN, evaluated by the
+    dqn_pong example's own evaluator; then play_pong's main into a GIF."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.convert import load_jax_policy
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.examples import play_pong
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.train import Evaluator
+
+    model = os.path.join(ROOT, "artifacts", "pong_model", "best")
+    for f in ("dqn.npz", "dqn.treedef.txt"):
+        if not os.path.isfile(os.path.join(model, f)):
+            fail(f"the JAX-trained Pong model lacks {f} under {model}")
+    with open(os.path.join(ROOT, "artifacts", "pong_curve.json")) as f:
+        jax_evals = json.load(f)["final_evals"]
+    ev = Evaluator(make("Pong-v0", train=False), n_episodes=10, max_steps=3_000)
+    agent = DQN(DQNConfig(model=lambda n: AtariCNN(out_dim=n)))
+    st = load_jax_policy(agent, model, ev.vec.observation_space,
+                         ev.vec.action_space)
+    if st.params.dtype != torch.bfloat16 or not next(st.params.parameters()).is_cuda:
+        fail("the loaded policy is not the port's bf16 AtariCNN on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score, rec = ev.evaluate(agent, st, eval_index=0)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    record = dict(rec.items())
+    print(f"JAX-trained Pong policy on the card (bf16 AtariCNN, load_jax_policy): "
+          f"mean return {score:.2f} over 10 episodes in {eval_s:.1f} s "
+          f"(min {record['Episode return min']}, max "
+          f"{record['Episode return max']}, length {record['Episode length']}); "
+          f"the JAX run's final evaluations {jax_evals}; the gate's target "
+          f"{PONG_TARGET}: " + json.dumps(record), flush=True)
+    if not score >= PONG_TARGET:
+        fail(f"the JAX-trained Pong policy scored {score} on the card, under "
+             f"{PONG_TARGET}")
+
+    work = tempfile.mkdtemp(prefix="border_smoke_play_")
+    try:
+        gif = os.path.join(work, "play.gif")
+        t0 = time.perf_counter()
+        play_pong.main(["--no-render", "--gif", gif, "--steps", str(PLAY_STEPS)])
+        play_s = time.perf_counter() - t0
+        with open(gif, "rb") as f:
+            data = f.read()
+        w, h, n = gif_frames(data)
+        if (w, h) != FRAME_HW[::-1] or not 0 < n <= PLAY_STEPS:
+            fail(f"play_pong's GIF is {w}x{h} with {n} images")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"play_pong: {PLAY_STEPS} steps into a GIF of {n} {w}x{h} images "
+          f"({len(data)} bytes) in {play_s:.1f} s, read back", flush=True)
+
+
+class _MlflowStub:
+    """An in-process MLflow REST stub on 127.0.0.1: records every request."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        requests = self.requests = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _reply(self, payload):
+                body = json.dumps(payload).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                requests.append(("GET", self.path, None))
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n) or b"{}")
+                requests.append(("POST", self.path, body))
+                if self.path.endswith("experiments/create"):
+                    self._reply({"experiment_id": "1"})
+                elif self.path.endswith("runs/create"):
+                    self._reply({"run": {"info": {"run_id": "run1"}}})
+                else:
+                    self._reply({})
+
+        self.server = HTTPServer(("127.0.0.1", 0), Handler)
+        self.uri = f"http://127.0.0.1:{self.server.server_port}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+    def posted(self, endpoint):
+        return [b for m, p, b in self.requests if m == "POST" and p.endswith(endpoint)]
+
+
+def examples_on_card(torch, dev) -> int:
+    """Phase 25: the examples' main(argv) at their default width, each cut
+    to a few update chunks.  Returns the gather launches (dqn_pong's)."""
+    import numpy as np
+
+    from border_tpu_torch.agents import DQNConfig
+    from border_tpu_torch.examples import (convert_policy, dqn_cartpole, dqn_pong,
+                                           offline_fetch_reacher)
+    from border_tpu_torch.ops import frame_gather
+
+    work = tempfile.mkdtemp(prefix="border_smoke_examples_")
+    seconds = {}
+    try:
+        # dqn_pong: bench.py's width, the 50,000-step warmup, one update chunk
+        t0 = time.perf_counter()
+        frame_gather.gather_frames.launches = 0
+        out = os.path.join(work, "pong")
+        r = dqn_pong.main(["--max-opts", "512", "--tensorboard", "--out", out])
+        torch.cuda.synchronize()
+        launches = frame_gather.gather_frames.launches
+        seconds["dqn_pong"] = time.perf_counter() - t0
+        if r.opt_steps != 512 or launches != r.opt_steps:
+            fail(f"dqn_pong example: {r.opt_steps} updates, {launches} gather "
+                 f"launches")
+        if not any(f.startswith("events.out.tfevents") for f in os.listdir(out)):
+            fail("dqn_pong example: no TensorBoard event file")
+        if not all(p.is_cuda and torch.isfinite(p).all()
+                   for p in r.agent_state.params.parameters()):
+            fail("dqn_pong example: parameters not finite or not on the card")
+        print(f"example dqn_pong: {r.opt_steps} updates after the 50,000-step "
+              f"warmup, {launches} gather launches = updates, TensorBoard "
+              f"events written, in {seconds['dqn_pong']:.1f} s", flush=True)
+        del r
+        _free(torch)
+
+        # dqn_cartpole: the agent from a config, MLflow, checkpoints, resume
+        try:
+            import yaml  # noqa: F401
+            have_yaml = True
+        except ImportError:
+            have_yaml = False
+        agent_cfg = dqn_cartpole.default_agent().config
+        out = os.path.join(work, "cartpole")
+        stub = _MlflowStub()
+        try:
+            t0 = time.perf_counter()
+            argv = ["--max-opts", "1024", "--checkpoint-interval", "256",
+                    "--out", out, "--mlflow", stub.uri]
+            if have_yaml:
+                from border_tpu_torch.utils import save_config
+
+                path = os.path.join(work, "agent.yaml")
+                save_config(agent_cfg, path, kind="dqn")
+                argv += ["--agent-config", path]
+                r = dqn_cartpole.main(argv)
+            else:  # the agent from a dict: build_agent, as the YAML would
+                from border_tpu_torch.utils import build_agent, config_to_dict
+
+                args = dqn_cartpole.parser().parse_args(argv)
+                objs = dqn_cartpole.build(args)
+                objs["agent"] = build_agent("dqn", config_to_dict(agent_cfg))
+                r = dqn_cartpole.run(args, objs)
+        finally:
+            stub.close()
+        metrics, params = stub.posted("runs/log-metric"), stub.posted("runs/log-parameter")
+        finished = stub.posted("runs/update")
+        keys = {p["key"] for p in params}
+        if (r.opt_steps != 1024 or not r.eval_history
+                or not {"trainer.max_opts", "agent.hidden", "env"} <= keys
+                or not any(m["key"] == "Episode return" for m in metrics)
+                or [u["status"] for u in finished] != ["FINISHED"]):
+            fail(f"dqn_cartpole example: {r.opt_steps} updates, evaluations "
+                 f"{r.eval_history}, {len(metrics)} metrics, params {sorted(keys)[:8]}, "
+                 f"run updates {finished}")
+        r2 = dqn_cartpole.main(["--max-opts", "1536", "--checkpoint-interval",
+                                "256", "--out", out, "--resume"]
+                               + (["--agent-config", path] if have_yaml else []))
+        seconds["dqn_cartpole"] = time.perf_counter() - t0
+        steps = sorted(int(d) for d in os.listdir(os.path.join(out, "ckpt")))
+        if r2.opt_steps != 1536 or steps[-1] != 1536:
+            fail(f"dqn_cartpole example: the resumed run ended at {r2.opt_steps}, "
+                 f"checkpoints {steps}")
+        print(f"example dqn_cartpole: agent from a {'YAML' if have_yaml else 'dict'} "
+              f"config (PyYAML {'present' if have_yaml else 'absent'}), "
+              f"{len(metrics)} MLflow metrics and {len(params)} params to a stub "
+              f"on 127.0.0.1, checkpoints every 256 updates, then --resume from "
+              f"1024 to {r2.opt_steps} (best evaluation {r.best_score:.1f}), in "
+              f"{seconds['dqn_cartpole']:.1f} s", flush=True)
+
+        # convert_policy: SAC, export, numpy-only deployment on C++ Pendulum
+        t0 = time.perf_counter()
+        returns = convert_policy.main(["--max-opts", "512", "--out",
+                                       os.path.join(work, "policy")])
+        seconds["convert_policy"] = time.perf_counter() - t0
+        if returns is None or returns.shape != (5,) or not np.isfinite(returns).all():
+            fail(f"convert_policy example: deployment returns {returns}")
+        print(f"example convert_policy: 512 SAC updates, exported, numpy-only "
+              f"deployment on 5 C++ Pendulum envs (mean return "
+              f"{returns.mean():.1f}), in {seconds['convert_policy']:.1f} s",
+              flush=True)
+
+        # offline_fetch_reacher over the .npz corpus (the card has no h5py)
+        t0 = time.perf_counter()
+        r = offline_fetch_reacher.main(["--dataset", "fetch-reacher-medium-v0",
+                                        "--max-opts", "250"])
+        seconds["offline_fetch_reacher"] = time.perf_counter() - t0
+        if r.opt_steps != 250 or not all(
+                p.is_cuda and torch.isfinite(p).all()
+                for p in r.agent_state.actor_params.parameters()):
+            fail(f"offline_fetch_reacher example: {r.opt_steps} updates")
+        print(f"example offline_fetch_reacher: IQL, 250 updates over "
+              f"fetch-reacher-medium-v0 in {seconds['offline_fetch_reacher']:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("examples seconds: " + json.dumps(seconds), flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -586,3 +586,42 @@ def test_async_trainer_actor_keeps_its_snapshot_on_card():
         assert module is tr._actor_params and module is not learner
         assert all(torch.equal(p, q) for p, q in
                    zip(module.parameters(), initial.parameters()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [96, 100])
+def test_flat_per_draws_at_batch_not_a_power_of_two_match_cpu_path(batch):
+    """The sum tree's strata at a batch size that is not a power of two:
+    the same priorities and the same injected uniforms give the same leaves
+    and weights on the card as on the CPU (the stratum width is divided by
+    a tensor, not multiplied by a Python number's reciprocal)."""
+    _cuda()
+    from border_tpu_torch.replay import PerConfig, ReplayBuffer, Transition
+
+    bufs = {d: ReplayBuffer(1024, device=d, per=PerConfig(n_opts_final=100))
+            for d in ("cpu", "cuda")}
+    g = torch.Generator().manual_seed(3)
+    z = torch.zeros(2)
+    flag = torch.zeros((), dtype=torch.bool)
+    example = Transition(z, torch.zeros((), dtype=torch.int32), z,
+                         torch.zeros(()), flag, flag)
+    states = {d: b.init(_to(example, d)) for d, b in bufs.items()}
+    push = Transition(
+        obs=torch.rand((1000, 2), generator=g),
+        act=torch.zeros((1000,), dtype=torch.int32),
+        next_obs=torch.rand((1000, 2), generator=g),
+        reward=torch.rand((1000,), generator=g),
+        terminated=torch.zeros((1000,), dtype=torch.bool),
+        truncated=torch.zeros((1000,), dtype=torch.bool))
+    # |td| over nine decades: leaves from ~1e-4 to ~6e1 wide
+    td = 10.0 ** (torch.rand(1000, generator=g) * 9 - 6)
+    for d, b in bufs.items():
+        b.push(states[d], _to(push, d))
+        b.update_priority(states[d], torch.arange(1000).to(d), td.to(d))
+    for _ in range(64):
+        u = torch.rand(batch, generator=g)
+        got = bufs["cuda"].draw_per(states["cuda"], None, batch, n_opts=50,
+                                    u=u.cuda())
+        want = bufs["cpu"].draw_per(states["cpu"], None, batch, n_opts=50, u=u)
+        assert torch.equal(got[0].cpu(), want[0])
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)

@@ -206,6 +206,34 @@ def test_minari_package_branch_against_stub(stub_minari):
     assert state.size == 24 and state.data.obs.shape == (64, 6)
 
 
+@pytest.mark.parametrize("branch", ["hdf5", "local"])
+def test_fallback_failure_chains_the_package_error(stub_minari, monkeypatch,
+                                                   branch):
+    """Whichever on-disk fallback fails after the package did, the final
+    error's ``__cause__`` is the package's error (the JAX loader chains
+    only a ``KeyError`` of the local corpora)."""
+    pkg_err = RuntimeError("minari package: dataset not served")
+
+    def load_dataset(dataset_id):
+        raise pkg_err
+
+    stub_minari.load_dataset = load_dataset
+    if branch == "hdf5":
+        # a committed Minari-format HDF5 and no .npz; h5py blocked
+        monkeypatch.setitem(sys.modules, "h5py", None)
+        dataset_id, raised = "pendulum-demo-v0", ImportError
+    else:
+        def broken_local(dataset_id, converter=None):
+            raise OSError("local corpus unreadable")
+
+        monkeypatch.setattr(MinariDataset, "_from_local", broken_local)
+        dataset_id, raised = "no-such-corpus-v0", OSError
+    with pytest.warns(UserWarning, match="minari package failed"):
+        with pytest.raises(raised) as info:
+            MinariDataset.load(dataset_id)
+    assert info.value.__cause__ is pkg_err
+
+
 def test_minari_without_package_and_registry():
     with pytest.raises(KeyError, match="pendulum-medium-v0"):
         MinariDataset.load("no-such-dataset-v0")

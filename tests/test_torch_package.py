@@ -162,3 +162,38 @@ def test_entry_points_raise_on_this_gpu_less_box():
         FrameReplayBuffer(capacity=8, num_envs=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         VecEnv(make("Pong-v0"), 2)
+
+
+EXAMPLES = ["dqn_pong", "play_pong", "dqn_cartpole", "convert_policy",
+            "iqn_seaquest", "async_dqn_pong", "dqn_pong_host",
+            "dqn_cartpole_native", "sac_pendulum", "sac_reacher",
+            "offline_pendulum_medium", "offline_fetch_reacher",
+            "offline_pendulum", "dqn_gymnasium", "sac_gymnasium"]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_default_to_cuda_and_raise_without_it(name, monkeypatch):
+    import importlib
+
+    _no_gpu(monkeypatch)
+    ex = importlib.import_module(f"border_tpu_torch.examples.{name}")
+    argv = ["--dataset", "fetch-reacher-medium-v0"] if name == "offline_fetch_reacher" else []
+    assert ex.parser().parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ex.main(argv)
+
+
+def test_slice_6_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from border_tpu_torch.train import run_elastic
+    from border_tpu_torch.utils import CheckpointManager
+
+    _no_gpu(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CheckpointManager(str(tmp_path / "ckpt"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_elastic(lambda mgr: None, str(tmp_path / "elastic"))
+    pix = spaces.Box(0, 255, (84, 84, 4), torch.uint8)
+    model = Path(__file__).resolve().parents[1] / "artifacts" / "pong_model" / "best"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.load_jax_policy(DQN(DQNConfig(model=AtariCNN)), str(model),
+                                pix, spaces.Discrete(6))
