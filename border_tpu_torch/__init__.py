@@ -25,6 +25,10 @@ counterpart is found under the same path:
   (evaluation, model saves, checkpoints, resume), the AsyncTrainer, the
   host-env trainer and evaluator, the OfflineTrainer, the Evaluator, and
   ``run_elastic`` (restart from the latest checkpoint after a crash).
+- :mod:`border_tpu_torch.parallel` — multi-GPU training on
+  ``torch.distributed``, one process per GPU: the sharded trainers
+  (synchronous and decoupled), the dp×tp GSPMD trainer, meshes and process
+  groups.
 - :mod:`border_tpu_torch.record` — Record/Recorder telemetry, TensorBoard
   event files, MLflow tracking.
 - :mod:`border_tpu_torch.utils`  — device resolution, the full-state
@@ -37,8 +41,9 @@ counterpart is found under the same path:
 
 It imports ``torch`` and numpy, never ``jax`` or ``border_tpu``.  Entry
 points (trainers, evaluators, envs, replay buffers, every agent's ``init``,
-the checkpoint manager, the converters, the examples) run on the GPU
-unless the caller passes ``device="cpu"`` (the examples: ``--device cpu``).
+the checkpoint manager, the converters, ``init_distributed``, the
+examples) run on the GPU unless the caller passes ``device="cpu"`` (the
+examples: ``--device cpu``).
 """
 
 __version__ = "0.1.0"

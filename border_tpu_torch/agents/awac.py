@@ -104,7 +104,7 @@ class GaussianActorAgent(Agent):
         mean, log_std = state.actor_params(obs)
         logp = gaussian.logp_of(act2d, mean, log_std, self.config.action_limit)
         loss = -(w * logp).mean()
-        minimize(state.actor_opt, loss)
+        minimize(state.actor_opt, loss, group=self.axis_group)
         return loss.detach()
 
     def policy_params(self, state) -> nn.Module:
@@ -164,7 +164,7 @@ class AWAC(GaussianActorAgent):
 
         q = critic(critic_input(obs, act2d))[..., 0]
         c_loss = weighted_mean(weight, (q - target[None, :]) ** 2)
-        minimize(state.critic_opt, c_loss)
+        minimize(state.critic_opt, c_loss, group=self.axis_group)
 
         # advantage weights from the critics just updated
         with torch.no_grad():

@@ -91,7 +91,8 @@ class BC(Agent):
             loss = -logp.gather(1, act.long()[:, None]).mean()
         else:
             loss = ((out - act.reshape(act.shape[0], -1)) ** 2).mean()
-        minimize(state.opt_state, loss, self.config.lr, state.n_opts)
+        minimize(state.opt_state, loss, self.config.lr, state.n_opts,
+                 group=self.axis_group)
         state.n_opts += 1
         return state, {"loss": loss.detach()}, None
 

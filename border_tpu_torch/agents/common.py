@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from border_tpu_torch.models.mlp import EnsembleMLP
+from border_tpu_torch.utils import collectives
 
 # a learning rate: a constant, or a schedule of the optimizer's step count
 LearningRate = Union[float, Callable[[int], float]]
@@ -100,14 +101,35 @@ def lr_at(lr: LearningRate, count: int) -> float:
     return lr(count) if callable(lr) else lr
 
 
+@torch.no_grad()
+def maybe_pmean(params: Iterable[torch.Tensor], group) -> None:
+    """The gradients of ``params`` averaged over the process ``group``, in
+    place: the data-parallel learner's reduction (≙ ``maybe_pmean``, a
+    ``pmean`` over the mesh axis).  ``group`` None: no reduction.  One
+    all-reduce per gradient dtype, over the gradients laid end to end."""
+    if group is None:
+        return
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = collectives.mean_(torch.cat([g.reshape(-1) for g in grads]), group)
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(
+            flat.split([g.numel() for g in grads]), grads)])
+
+
 def minimize(opt: torch.optim.Optimizer, loss: torch.Tensor,
              lr: Optional[LearningRate] = None, count: int = 0,
-             inputs: Optional[List[torch.Tensor]] = None) -> None:
+             inputs: Optional[List[torch.Tensor]] = None,
+             group=None) -> None:
     """One step of ``opt`` on ``loss``: zero the grads, backpropagate (into
-    ``inputs`` alone when given), step.  A schedule ``lr`` sets the rate
+    ``inputs`` alone when given), average the gradients over ``group``
+    (:func:`maybe_pmean`), step.  A schedule ``lr`` sets the rate
     ``lr(count)`` first; ``count`` is a host int, so that costs no sync."""
     opt.zero_grad(set_to_none=True)
     loss.backward(inputs=inputs)
+    maybe_pmean((p for g in opt.param_groups for p in g["params"]), group)
     if callable(lr):
         for group in opt.param_groups:
             group["lr"] = lr(count)
@@ -177,6 +199,29 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
+
+
+@torch.no_grad()
+def clip_grads_(params: Iterable[torch.Tensor], max_norm: float) -> None:
+    """:func:`clip_by_global_norm_` over the gradients of ``params``.  A
+    column-sharded parameter (``tp_group``: the name of its model group,
+    set by the port's GSPMDTrainer) holds a block of its tensor: the
+    squares of those blocks are summed over the model group, and the
+    replicated parameters count once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    groups = {getattr(p, "tp_group", None) for p in params} - {None}
+    if not groups:
+        clip_by_global_norm_(grads, max_norm)
+        return
+    (name,) = groups
+    sq = torch.stack(torch._foreach_norm(grads)).square()
+    sharded = torch.tensor([getattr(p, "tp_group", None) is not None
+                            for p in params], device=sq.device)
+    sq_sharded = collectives.all_reduce_(
+        torch.where(sharded, sq, 0.0).sum(), collectives.group_by_name(name))
+    norm = (sq_sharded + torch.where(sharded, 0.0, sq).sum()).sqrt()
+    torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0, max_norm / norm))
 
 
 @torch.no_grad()

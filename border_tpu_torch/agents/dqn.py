@@ -28,8 +28,9 @@ from torch import nn
 from border_tpu_torch.agents.common import (
     CRITIC_LOSSES,
     bootstrap_discount,
-    clip_by_global_norm_,
+    clip_grads_,
     make_optimizer,
+    maybe_pmean,
     param_generator,
     periodic_polyak,
 )
@@ -196,9 +197,11 @@ class DQN(Agent):
 
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        # averaged over the data-parallel group first, clipped after: in
+        # the JAX agent the clip is the first stage of the optimizer chain
+        maybe_pmean(net.parameters(), self.axis_group)
         if c.max_grad_norm is not None:
-            clip_by_global_norm_([p.grad for p in net.parameters()],
-                                 c.max_grad_norm)
+            clip_grads_(net.parameters(), c.max_grad_norm)
         for group in opt.param_groups:
             group["lr"] = self._lr(state.n_opts)
         opt.step()

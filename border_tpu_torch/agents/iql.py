@@ -114,7 +114,7 @@ class IQL(GaussianActorAgent):
         u = q_tgt - v
         w_exp = torch.where(u < 0.0, 1.0 - c.expectile, c.expectile)
         v_loss = (w_exp * u**2).mean()
-        minimize(state.value_opt, v_loss)
+        minimize(state.value_opt, v_loss, group=self.axis_group)
         v = v.detach()
 
         # critic toward r + γ(1−d)·V(s') of the value net just updated
@@ -122,7 +122,7 @@ class IQL(GaussianActorAgent):
             target = reward + bootstrap_discount(c.gamma, batch) * value(next_obs)[:, 0]
         q = critic(critic_input(obs, act2d))[..., 0]
         c_loss = weighted_mean(weight, (q - target[None, :]) ** 2)
-        minimize(state.critic_opt, c_loss)
+        minimize(state.critic_opt, c_loss, group=self.axis_group)
 
         # AWR actor
         adv = q_tgt - v

@@ -30,6 +30,7 @@ from torch import nn
 from border_tpu_torch.agents.common import (
     bootstrap_discount,
     make_optimizer,
+    maybe_pmean,
     param_generator,
     periodic_polyak,
     quantile_huber_loss,
@@ -206,6 +207,7 @@ class IQN(Agent):
 
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        maybe_pmean(net.parameters(), self.axis_group)
         opt.step()
         state.n_opts += 1
         periodic_polyak(state.n_opts, c.soft_update_interval, c.tau,

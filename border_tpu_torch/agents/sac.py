@@ -176,18 +176,19 @@ class SAC(Agent):
 
         q = critic(critic_input(obs, act))[..., 0]  # [n, B]
         c_loss = weighted_mean(weight, CRITIC_LOSSES[c.critic_loss](q, target[None, :]))
-        minimize(state.critic_opt, c_loss)
+        minimize(state.critic_opt, c_loss, group=self.axis_group)
 
         # actor loss α·logπ − minQ, through the critics just updated
         a, logp = self._sample_action(actor, obs, gen, z_actor)
         min_q = critic(critic_input(obs, a))[..., 0].min(0).values
         a_loss = (alpha * logp - min_q).mean()
-        minimize(state.actor_opt, a_loss, inputs=list(actor.parameters()))
+        minimize(state.actor_opt, a_loss, inputs=list(actor.parameters()),
+                 group=self.axis_group)
         logp = logp.detach()
 
         if c.ent_coef_mode == "auto":
             al_loss = -(state.log_alpha * (logp + self.target_entropy)).mean()
-            minimize(state.alpha_opt, al_loss)
+            minimize(state.alpha_opt, al_loss, group=self.axis_group)
             al_loss = al_loss.detach()
         else:
             al_loss = torch.zeros((), device=reward.device)

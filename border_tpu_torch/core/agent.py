@@ -54,6 +54,11 @@ def _unflatten(arrays) -> Dict[Any, Any]:
 
 class Agent:
     name: str = "Agent"
+    # ≙ the JAX agents' ``axis_name``: the process group over which
+    # ``update`` averages its gradients, between the backward pass and the
+    # optimizer step (set by the port's ShardedTrainer and GSPMDTrainer);
+    # None: no reduction
+    axis_group = None
 
     def on_env_step(self, state: AgentState, n: int) -> AgentState:
         """Advance env-step-driven schedules (ε decay etc.); default no-op."""

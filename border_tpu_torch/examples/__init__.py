@@ -19,7 +19,8 @@ The examples: ``dqn_pong`` (the main path), ``play_pong``,
 ``dqn_cartpole``, ``convert_policy``, ``iqn_seaquest``, ``async_dqn_pong``,
 ``dqn_pong_host``, ``dqn_cartpole_native``, ``sac_pendulum``,
 ``sac_reacher``, ``offline_pendulum_medium``, ``offline_fetch_reacher``,
-``offline_pendulum``, ``dqn_gymnasium`` and ``sac_gymnasium``.
+``offline_pendulum``, ``dqn_gymnasium``, ``sac_gymnasium`` and
+``sharded_dqn`` (multi-GPU: one rank per GPU, under ``torchrun``).
 """
 
 import os

@@ -12,6 +12,14 @@ JAX), with each weight cast at use; the Q output is float32.  The flatten
 before ``fc0`` is in NCHW order (``c·49 + h·7 + w``);
 :mod:`border_tpu_torch.convert` permutes the JAX ``Dense_0`` rows (NHWC
 order) to match.
+
+Under the port's GSPMDTrainer a layer's weight may be column-sharded: it
+then holds the rank's block of output features and carries ``tp_group``,
+the name of its model group.  :func:`linear` and :func:`conv2d` compute
+that block, gather the blocks over the group and add the whole
+(replicated) bias; the gradient of their input is summed over the group,
+since every block reads it.  On an unsharded weight they are ``F.linear``
+and ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from border_tpu_torch.utils import collectives
+
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
                    gen: Optional[torch.Generator]) -> None:
@@ -30,6 +40,33 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
     variance is 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+def _tp_group(weight: torch.Tensor):
+    name = getattr(weight, "tp_group", None)
+    return None if name is None else collectives.group_by_name(name)
+
+
+def linear(m: nn.Module, x: torch.Tensor, w: torch.Tensor,
+           b: torch.Tensor) -> torch.Tensor:
+    """``F.linear(x, w, b)`` for the layer ``m`` (``w``, ``b``: its weight
+    and bias, cast for use)."""
+    group = _tp_group(m.weight)
+    if group is None:
+        return F.linear(x, w, b)
+    x = collectives.sum_grad(x, group)
+    return collectives.gather_columns(F.linear(x, w), -1, group) + b
+
+
+def conv2d(m: nn.Module, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           stride: int) -> torch.Tensor:
+    """``F.conv2d(x, w, b, stride)`` for the layer ``m``, NCHW."""
+    group = _tp_group(m.weight)
+    if group is None:
+        return F.conv2d(x, w, b, stride=stride)
+    x = collectives.sum_grad(x, group)
+    y = collectives.gather_columns(F.conv2d(x, w, stride=stride), 1, group)
+    return y + b[:, None, None]
 
 
 class AtariCNN(nn.Module):
@@ -77,11 +114,11 @@ class AtariCNN(nn.Module):
         else:
             x = x / 255.0
             w, b = self._w(self.conv0)
-        x = F.relu(F.conv2d(x, w, b, stride=4))
-        x = F.relu(F.conv2d(x, *self._w(self.conv1), stride=2))
-        x = F.relu(F.conv2d(x, *self._w(self.conv2), stride=1))
+        x = F.relu(conv2d(self.conv0, x, w, b, stride=4))
+        x = F.relu(conv2d(self.conv1, x, *self._w(self.conv1), stride=2))
+        x = F.relu(conv2d(self.conv2, x, *self._w(self.conv2), stride=1))
         x = x.flatten(1)  # NCHW order: c·49 + h·7 + w
-        x = F.relu(F.linear(x, *self._w(self.fc0)))
+        x = F.relu(linear(self.fc0, x, *self._w(self.fc0)))
         if self.skip_linear:
             return x.float()
-        return F.linear(x, *self._w(self.fc1)).float()
+        return linear(self.fc1, x, *self._w(self.fc1)).float()

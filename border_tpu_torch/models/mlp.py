@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from border_tpu_torch.models.cnn import _lecun_normal_
+from border_tpu_torch.models.cnn import _lecun_normal_, _tp_group, linear
+from border_tpu_torch.utils import collectives
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -32,7 +33,7 @@ ACTIVATIONS = {
 
 def dense(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``m`` applied in ``dtype`` (the float32 parameters cast at use)."""
-    return F.linear(x, m.weight.to(dtype), m.bias.to(dtype))
+    return linear(m, x, m.weight.to(dtype), m.bias.to(dtype))
 
 
 def reset_linears(linears, gen: Optional[torch.Generator]) -> None:
@@ -159,7 +160,13 @@ class EnsembleMLP(nn.Module):
         x = x.expand(self.n, *x.shape)
         last = len(self.weights) - 1
         for i, (w, b) in enumerate(zip(self.weights, self.biases)):
-            x = torch.baddbmm(b[:, None, :], x, w)
+            group = _tp_group(w)  # a column-sharded [n, in, out/tp] block
+            if group is None:
+                x = torch.baddbmm(b[:, None, :], x, w)
+            else:
+                x = collectives.sum_grad(x, group)
+                x = collectives.gather_columns(torch.bmm(x, w), -1, group) \
+                    + b[:, None, :]
             if i < last:
                 x = self.act(x)
         return x

@@ -172,6 +172,28 @@ class FrameReplayBuffer:
             self._env_base = (torch.arange(num_envs, device=self.device)
                               * capacity)[:, None]
 
+    def with_num_envs(self, num_envs: int) -> "FrameReplayBuffer":
+        """A copy of this buffer for ``num_envs`` env columns, every other
+        setting the same (the slice group clamped to the columns, as in
+        the JAX buffer): the per-rank replay shard of the port's
+        ShardedTrainer, ``num_envs / world`` columns each, so the ranks'
+        shards partition the global env axis.  A prioritized copy's tree
+        has ``num_envs × capacity`` leaves, which must be a power of
+        two."""
+        return FrameReplayBuffer(
+            capacity=self.capacity,
+            num_envs=num_envs,
+            frame_hw=self.frame_hw,
+            stack=self.stack,
+            n_step=self.n_step,
+            gamma=self.gamma,
+            per=self.per,
+            sample_mode=self.sample_mode,
+            slice_group=min(self.slice_group, num_envs),
+            sort_samples=self.sort_samples,
+            device=self.device,
+        )
+
     def init(self, example=None) -> FrameReplayState:
         n, cap = self.num_envs, self.capacity
         z = lambda dtype, *shape: torch.zeros(  # noqa: E731

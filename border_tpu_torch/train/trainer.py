@@ -172,9 +172,14 @@ class Trainer:
             1, round(transitions_per_chunk / c.opt_interval)
         ) * c.n_updates_per_opt
         self._check_sample_batches(buffer)
-        self._check_nstep_stride(buffer, c.num_envs)
+        self._check_nstep_stride(buffer, self._nstep_expected_stride())
         self._check_nstep_clip(agent, buffer)
         self._check_nstep_gamma(agent, buffer)
+
+    def _nstep_expected_stride(self) -> int:
+        """The envs pushed into one buffer per vec step (ShardedTrainer:
+        the rank's envs)."""
+        return self.config.num_envs
 
     def _check_sample_batches(self, buffer) -> None:
         """``updates_per_sample_batch`` cuts one big uniform sample into
@@ -344,6 +349,20 @@ class Trainer:
         """``ex``: the restored ``extra``; a module saved by
         :meth:`_checkpoint_extra` comes back as its ``state_dict``."""
 
+    # subclass hooks of the loop (ShardedTrainer: per rank, over the group)
+    def _loop_generator(self, seed: int) -> torch.Generator:
+        """The generator of the loop's action and replay draws."""
+        return torch.Generator(device=self.device).manual_seed(seed + 2)
+
+    def _buffer_fill(self, buffer_state) -> int:
+        """The sampleable transitions the warmup compares."""
+        return self.buffer.fill(buffer_state)
+
+    def _evaluate(self, agent_state, eval_index: int):
+        """``(score, record)`` of one evaluation."""
+        return self.evaluator.evaluate(self.agent, agent_state,
+                                       eval_index=eval_index)
+
     # ------------------------------------------------------------------
     # state construction
     # ------------------------------------------------------------------
@@ -387,7 +406,7 @@ class Trainer:
             agent_state = init_agent
         if buffer_state is None:
             buffer_state = init_buffer
-        gen = torch.Generator(device=self.device).manual_seed(seed + 2)
+        gen = self._loop_generator(seed)
 
         env_steps = opt_steps = 0
         best_score = -float("inf")
@@ -432,7 +451,7 @@ class Trainer:
         t0 = time.perf_counter()
 
         while opt_steps < c.max_opts:
-            warmed = self.buffer.fill(buffer_state) >= max(
+            warmed = self._buffer_fill(buffer_state) >= max(
                 c.warmup_period, c.batch_size
             )
             t_chunk = time.perf_counter()
@@ -484,9 +503,7 @@ class Trainer:
 
             # -- evaluation + best-model (≙ post_process, trainer.rs:231-264)
             if self.evaluator is not None and opt_steps >= next_eval:
-                score, eval_rec = self.evaluator.evaluate(
-                    self.agent, agent_state, eval_index=n_evals
-                )
+                score, eval_rec = self._evaluate(agent_state, n_evals)
                 n_evals += 1
                 eval_history.append((opt_steps, score))
                 self.recorder.write_at(eval_rec, opt_steps)

@@ -129,7 +129,26 @@ Phases, one line each (any failure exits non-zero with no result line):
     --checkpoint-interval, then --resume), convert_policy (512 SAC
     updates, export, numpy-only deployment on the C++ Pendulum pool) and
     offline_fetch_reacher --dataset fetch-reacher-medium-v0 (250 IQL
-    updates), one line each with its seconds.
+    updates), one line each with its seconds;
+26. the multi-GPU paths (border_tpu_torch.parallel): (a) ShardedTrainer in
+    a world of one rank over NCCL (a FileStore in a temporary directory) at
+    the uniform path's config, one env chunk and one update chunk of 512
+    updates from the plain Trainer's states and generator state: agent
+    state, ring and loss must equal the plain Trainer's bitwise; then one
+    chunk of ShardedAsyncTrainer; (b) two ranks of this script on the one
+    card over gloo (NCCL takes one rank per GPU), the same global config
+    (512 envs and batch 256 a rank): one env chunk and 512 updates, the
+    parameters bitwise equal across the ranks, the loss finite, the gather
+    launched on both ranks; (c) GSPMDTrainer at dp=1, tp=2 on those two
+    ranks, the bf16 AtariCNN's five weights column-sharded: after the first
+    update from the plain Trainer's ring and generator state, every element
+    within 2·lr of the plain Trainer's and at most 5% of them beyond
+    1e-3·lr (Adam's first step is lr·sign(g), and a bf16 gradient near 0
+    may flip its sign under another summation order), then a chunk cut to
+    6 env steps and 8 updates with a finite loss; (d) the sharded_dqn
+    example through main(argv), a world of one over NCCL, its defaults'
+    width, --max-opts 1,000.  The ranks' gather launches count in the
+    kernels line.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -221,6 +240,12 @@ PONG_HOST_EVAL_STEPS, HOST_RESUME_UPDATES = 200, 128
 HOST_CART = dict(max_opts=1_500, warmup_period=500, opt_interval=16,
                  batch_size=64, num_envs=32, steps_per_chunk=8, eval_interval=500)
 HOST_CART_MIN_SCORE = 100.0
+# phase 26 (c): GSPMDTrainer's chunk at the uniform path's width is cut to
+# GSPMD_ENV_STEPS env steps and GSPMD_UPDATES updates (each activation of the
+# column-parallel layers crosses gloo through the host); after the first
+# update at most GSPMD_MAX_FRAC of the elements may step differently from
+# the plain Trainer's (bf16 gradients whose sign flips)
+GSPMD_ENV_STEPS, GSPMD_UPDATES, GSPMD_MAX_FRAC = 6, 8, 0.05
 # the JAX-trained Pong policy must reach the gate's Pong target on the card;
 # play_pong then plays PLAY_STEPS steps into a GIF
 PONG_TARGET, PLAY_STEPS = 18.0, 512
@@ -430,6 +455,9 @@ def main() -> None:
     timed("23 utilities", utilities_on_card, torch, dev)
     timed("24 jax pong policy", jax_pong_policy, torch, dev)
     launches += timed("25 examples", examples_on_card, torch, dev)
+
+    # -- 26. the multi-GPU paths: NCCL world of one, two ranks over gloo -------
+    launches += timed("26 sharded", sharded_paths, torch, dev)
 
     kernels = [{
         "name": "frame_gather",
@@ -2672,5 +2700,337 @@ def examples_on_card(torch, dev) -> int:
     return launches
 
 
+# -- phase 26: the multi-GPU paths ----------------------------------------------
+
+def _pong_config(**kw):
+    """bench.py's Pong config (the uniform path's), ``kw`` replaced."""
+    from border_tpu_torch.train import TrainerConfig
+
+    return TrainerConfig(num_envs=NUM_ENVS, steps_per_chunk=STEPS_PER_CHUNK,
+                         batch_size=BATCH, opt_interval=OPT_INTERVAL,
+                         warmup_period=0).replace(**kw)
+
+
+def _loss_of(metrics) -> float:
+    return float(metrics["loss"])
+
+
+def sharded_world_of_one(torch, dev) -> dict:
+    """Phase 26 (a): ShardedTrainer in a world of one rank over NCCL (a
+    FileStore in a temporary directory) at the uniform path's config, one
+    env chunk and one update chunk from the plain Trainer's states and
+    generator state: the agent state and the ring must end bitwise equal
+    to the plain Trainer's; then one chunk of ShardedAsyncTrainer."""
+    import copy
+
+    import torch.distributed as dist
+
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.parallel import (ShardedAsyncTrainer, ShardedTrainer,
+                                           init_distributed, make_mesh)
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import Trainer
+
+    work = tempfile.mkdtemp(prefix="border_smoke_nccl_")
+    init_distributed(f"file://{os.path.join(work, 'store')}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"sharded (a): backend {dist.get_backend()}, not nccl")
+        cfg = _pong_config()
+        env, mesh = make("Pong-v0"), make_mesh()
+        plain = Trainer(env, _pixel_dqn(), FrameReplayBuffer(CAPACITY, NUM_ENVS), cfg)
+        sharded = ShardedTrainer(env, _pixel_dqn(), FrameReplayBuffer(CAPACITY, NUM_ENVS),
+                                 cfg, mesh=mesh)
+        agent_state, vec_state, buf_state = plain.init_states(0, 1)
+        states = {"plain": [agent_state, vec_state, buf_state],
+                  "sharded": [copy.deepcopy(agent_state), sharded.vec.reset(1),
+                              sharded.buffer.init()]}
+        out, launches = {}, 0
+        for name, tr in (("plain", plain), ("sharded", sharded)):
+            st = states[name]
+            gen = torch.Generator(device=dev).manual_seed(7)
+            st[:] = tr._chunk(*st, gen, False)[:3]
+            torch.cuda.synchronize()
+            frame_gather.gather_frames.launches = 0
+            t0 = time.perf_counter()
+            *chunk, metrics, _, _ = tr._chunk(*st, gen, True)
+            st[:] = chunk
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if name == "sharded":
+                launches = frame_gather.gather_frames.launches
+            out[name] = {"updates_per_s": tr.updates_per_chunk / dt,
+                         "loss": _loss_of(metrics), "gen": gen}
+        n_upd = sharded.updates_per_chunk
+        if launches != n_upd or not math.isfinite(out["sharded"]["loss"]):
+            fail(f"sharded (a): {launches} gather launches for {n_upd} updates, "
+                 f"loss {out['sharded']['loss']}")
+        for part, i in (("agent state", 0), ("ring", 2)):
+            bad = _state_diff(torch, states["plain"][i], states["sharded"][i])
+            if bad:
+                fail(f"sharded (a): the world-of-one {part} differs from the "
+                     f"plain Trainer's in {bad[:8]}")
+        if out["plain"]["loss"] != out["sharded"]["loss"]:
+            fail(f"sharded (a): loss {out['sharded']['loss']} != the plain "
+                 f"Trainer's {out['plain']['loss']}")
+
+        # one chunk of ShardedAsyncTrainer, from the sharded run's states
+        tr = ShardedAsyncTrainer(env, sharded.agent, sharded.buffer, cfg, mesh=mesh)
+        a, v, b = states["sharded"]
+        n0 = a.n_opts
+        frame_gather.gather_frames.launches = 0
+        t0 = time.perf_counter()
+        a, v, b, metrics, _, _ = tr._dispatch(a, v, b, out["sharded"]["gen"], True)
+        torch.cuda.synchronize()
+        dt_async = time.perf_counter() - t0
+        async_launches = frame_gather.gather_frames.launches
+        if (a.n_opts - n0 != tr.updates_per_chunk or async_launches != tr.updates_per_chunk
+                or not math.isfinite(_loss_of(metrics))):
+            fail(f"sharded (a): the ShardedAsyncTrainer chunk ran {a.n_opts - n0} "
+                 f"updates with {async_launches} gather launches")
+        result = {"updates": n_upd, "updates_per_s_sharded": out["sharded"]["updates_per_s"],
+                  "updates_per_s_plain": out["plain"]["updates_per_s"],
+                  "loss": out["sharded"]["loss"], "gather_launches": launches,
+                  "async_chunk_s": dt_async, "async_gather_launches": async_launches,
+                  "async_loss": _loss_of(metrics)}
+        print(f"sharded (a): ShardedTrainer, a world of one over NCCL, Pong "
+              f"{NUM_ENVS} envs, batch {BATCH}: one env chunk and {n_upd} updates "
+              f"bitwise equal to the plain Trainer (agent state, ring, loss); "
+              f"updates/s {result['updates_per_s_sharded']:.2f} (plain "
+              f"{result['updates_per_s_plain']:.2f}); then a ShardedAsyncTrainer "
+              f"chunk in {dt_async:.2f} s, loss {result['async_loss']:.6g}", flush=True)
+        return {**result, "launches_total": launches + async_launches}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def sharded_rank(spec_path: str, rank: int) -> None:
+    """A rank of phase 26 (b) and (c): two ranks on the one card over gloo.
+    Writes ``rank<r>.json`` (and its parameters) into the spec's directory."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.parallel import (GSPMDTrainer, ShardedTrainer,
+                                           init_distributed, make_dp_tp_mesh)
+    from border_tpu_torch.parallel.gspmd import full_state_dict
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    work, dev = spec["dir"], torch.device("cuda")
+    init_distributed(f"file://{os.path.join(work, 'store')}", 2, rank,
+                     backend="gloo")
+    res = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
+    try:
+        # started while (a) runs: the card's work waits for (a)'s end
+        deadline = time.perf_counter() + 300
+        while not os.path.exists(os.path.join(work, "go")):
+            if time.perf_counter() > deadline:
+                raise TimeoutError("no go from the parent in 300 s")
+            time.sleep(0.05)
+        # (b) ShardedTrainer: 1024 envs and batch 512 over two ranks
+        tr = ShardedTrainer(make("Pong-v0"), _pixel_dqn(),
+                            FrameReplayBuffer(CAPACITY, NUM_ENVS), _pong_config())
+        a, v, b = tr.init_states(0, 1)
+        gen = tr._loop_generator(0)
+        a, v, b = tr._chunk(a, v, b, gen, False)[:3]
+        torch.cuda.synchronize()
+        frame_gather.gather_frames.launches = 0
+        t0 = time.perf_counter()
+        a, v, b, metrics, _, _ = tr._chunk(a, v, b, gen, True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res["b"] = {"local_envs": tr.local_envs, "local_batch": tr.local_batch,
+                    "updates": tr.updates_per_chunk, "loss": _loss_of(metrics),
+                    "updates_per_s": tr.updates_per_chunk / dt,
+                    "gather_launches": frame_gather.gather_frames.launches}
+        torch.save({k: t.cpu() for k, t in a.params.state_dict().items()},
+                   os.path.join(work, f"params{rank}.pt"))
+        del tr, a, v, b
+        torch.cuda.empty_cache()
+
+        # (c) GSPMDTrainer, dp=1 and tp=2: the first update against the
+        # plain Trainer's from the same ring and generator state (rank 0),
+        # then the rest of a chunk cut to GSPMD_UPDATES updates
+        cfg = _pong_config(steps_per_chunk=GSPMD_ENV_STEPS)
+        g = GSPMDTrainer(make("Pong-v0"), _pixel_dqn(),
+                         FrameReplayBuffer(CAPACITY, NUM_ENVS), cfg,
+                         mesh=make_dp_tp_mesh(1, 2))
+        ga, gv, gb = g.init_states(0, 1)
+        sharded = {k: tuple(t.shape) for k, t in ga.params.state_dict().items()}
+        plain = Trainer(make("Pong-v0"), _pixel_dqn(),
+                        FrameReplayBuffer(CAPACITY, NUM_ENVS), cfg)
+        pa, pv, pb = plain.init_states(0, 1)
+        pgen = plain._loop_generator(0)
+        pa, pv, pb = plain._chunk(pa, pv, pb, pgen, False)[:3]  # one env chunk
+        ggen = torch.Generator(device=dev)
+        ggen.set_state(pgen.get_state())
+        g.updates_per_chunk = plain.updates_per_chunk = 1
+        before = {k: t.clone() for k, t in pa.params.state_dict().items()}
+        pa = plain._update_scan(pa, pb, pgen)[0]
+        frame_gather.gather_frames.launches = 0
+        ga, gb, _ = g._update_scan(ga, pb, ggen)  # the plain run's ring
+        full = full_state_dict(ga.params)
+        lr = ga.opt_state.param_groups[0]["lr"]
+        diffs = torch.cat([(full[k] - t).abs().reshape(-1)
+                           for k, t in pa.params.state_dict().items()])
+        moved = max((pa.params.state_dict()[k] - t).abs().max().item()
+                    for k, t in before.items())
+        res["c"] = {
+            "sharded_shapes": sharded, "lr": lr, "moved": moved,
+            "max_abs_diff": diffs.max().item(),
+            "frac_diff_over_1e-3_lr": (diffs > 1e-3 * lr).float().mean().item()}
+        del plain, pa, pv, pb, before
+        torch.cuda.empty_cache()
+        g.updates_per_chunk = GSPMD_UPDATES
+        gb = g.buffer.init()  # its own ring: an env chunk acting through TP
+        t0 = time.perf_counter()
+        ga, gv, gb, metrics, _, _ = g._chunk(ga, gv, gb, ggen, True)
+        torch.cuda.synchronize()
+        res["c"].update(chunk_s=time.perf_counter() - t0, loss=_loss_of(metrics),
+                        env_steps=GSPMD_ENV_STEPS, updates=GSPMD_UPDATES + 1,
+                        gather_launches=frame_gather.gather_frames.launches)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def start_two_ranks():
+    """Phase 26 (b) and (c): two ranks of this script on the one card,
+    started (imports, process group) before (a) and waiting for its end."""
+    work = tempfile.mkdtemp(prefix="border_smoke_gloo_")
+    spec = os.path.join(work, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"dir": work}, f)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sharded-rank", spec, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    return work, procs
+
+
+def finish_two_ranks(torch, work, procs) -> dict:
+    """Lets the two ranks run, waits for them and checks what they wrote
+    (the caller kills a rank left running and removes ``work``)."""
+    open(os.path.join(work, "go"), "w").close()
+    errs = []
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=300)
+            if p.returncode:
+                errs.append(f"rank {r} exited {p.returncode}: {err[-3000:]}")
+    except subprocess.TimeoutExpired:
+        errs.append("the two ranks outlasted 300 s")
+    if errs:
+        fail("sharded (b, c): " + "\n".join(errs))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    p0, p1 = (torch.load(os.path.join(work, f"params{r}.pt")) for r in range(2))
+
+    b = [r["b"] for r in ranks]
+    if any(r["backend"] != "gloo" or r["world"] != 2 for r in ranks):
+        fail(f"sharded (b): ranks {[(r['backend'], r['world']) for r in ranks]}")
+    bad = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+    if bad:
+        fail(f"sharded (b): the parameters differ across the ranks in {bad}")
+    for x in b:
+        if (x["local_envs"] != NUM_ENVS // 2 or x["local_batch"] != BATCH // 2
+                or x["gather_launches"] != x["updates"] or not math.isfinite(x["loss"])):
+            fail(f"sharded (b): {x}")
+    c = [r["c"] for r in ranks]
+    want = {"conv0.weight": [16, 4, 8, 8], "conv1.weight": [32, 32, 4, 4],
+            "conv2.weight": [32, 64, 3, 3], "fc0.weight": [256, 3136],
+            "fc1.weight": [3, 512], "fc0.bias": [512]}
+    for x in c:
+        shapes = {k: list(v) for k, v in x["sharded_shapes"].items()}
+        if any(shapes[k] != v for k, v in want.items()):
+            fail(f"sharded (c): the rank holds {shapes}")
+        # Adam's first step is about lr·sign(g): both runs step each element
+        # by at most lr, and the same amount wherever the bf16 gradient's
+        # sign does not flip between the two layouts' summation orders
+        if (x["max_abs_diff"] > 2 * x["lr"] * (1 + 1e-3)
+                or x["frac_diff_over_1e-3_lr"] > GSPMD_MAX_FRAC
+                or x["moved"] < 0.5 * x["lr"]
+                or not math.isfinite(x["loss"])
+                or x["gather_launches"] != x["updates"]):
+            fail(f"sharded (c): {x}")
+    print(f"sharded (b): ShardedTrainer, two ranks on the one card over gloo, "
+          f"{NUM_ENVS} envs ({NUM_ENVS // 2} a rank), batch {BATCH} ({BATCH // 2} "
+          f"a rank): one env chunk and {b[0]['updates']} updates, parameters "
+          f"bitwise equal across the ranks, loss {b[0]['loss']:.6g}; updates/s "
+          f"{b[0]['updates_per_s']:.2f}, {b[1]['updates_per_s']:.2f}; gather "
+          f"launches {b[0]['gather_launches']}, {b[1]['gather_launches']}", flush=True)
+    print(f"sharded (c): GSPMDTrainer dp=1 tp=2 over gloo on the one card, "
+          f"bf16 AtariCNN column-sharded (conv0 {want['conv0.weight']} a rank): "
+          f"after the first update max |GSPMD - plain Trainer| "
+          f"{c[0]['max_abs_diff']:.3g} (bound 2 lr = {2 * c[0]['lr']:.3g}), "
+          f"{c[0]['frac_diff_over_1e-3_lr']:.5f} of the elements beyond 1e-3 lr "
+          f"(bound {GSPMD_MAX_FRAC}); a chunk of {GSPMD_ENV_STEPS} env steps and "
+          f"{GSPMD_UPDATES} updates in {c[0]['chunk_s']:.2f} s, loss "
+          f"{c[0]['loss']:.6g}", flush=True)
+    launches = sum(x["gather_launches"] for x in b) + sum(x["gather_launches"] for x in c)
+    return {"b": b, "c": c, "launches_total": launches}
+
+
+def sharded_example(torch) -> dict:
+    """Phase 26 (d): the sharded_dqn example through main(argv), a world of
+    one over NCCL, its defaults' width, --max-opts cut to 1,000."""
+    import torch.distributed as dist
+
+    from border_tpu_torch.examples import sharded_dqn
+
+    t0 = time.perf_counter()
+    r = sharded_dqn.main(["--max-opts", "1000"])
+    seconds = time.perf_counter() - t0
+    if (r.opt_steps < 1000 or not r.eval_history or dist.is_initialized()
+            or not all(p.is_cuda and torch.isfinite(p).all()
+                       for p in r.agent_state.params.parameters())):
+        fail(f"sharded (d): {r.opt_steps} updates, evaluations {r.eval_history}")
+    print(f"sharded (d): the sharded_dqn example, a world of one over NCCL, "
+          f"{r.opt_steps} updates, evaluation {r.eval_history}, in {seconds:.1f} s",
+          flush=True)
+    return {"updates": r.opt_steps, "seconds": seconds,
+            "updates_per_s": r.opt_per_sec, "eval_history": r.eval_history}
+
+
+def sharded_paths(torch, dev) -> int:
+    """Phase 26.  Returns the gather launches of the sharded runs (the two
+    worker ranks' included)."""
+    t = {}
+    work, procs = start_two_ranks()
+    try:
+        t0 = time.perf_counter()
+        a = sharded_world_of_one(torch, dev)
+        _free(torch)
+        t["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bc = finish_two_ranks(torch, work, procs)
+        t["b_c"] = time.perf_counter() - t0
+    finally:  # a failed check leaves no rank behind
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    d = sharded_example(torch)
+    t["d"] = time.perf_counter() - t0
+    print("sharded path numbers: " + json.dumps(
+        {"a": a, "b": bc["b"], "c": bc["c"], "d": d, "seconds": t}), flush=True)
+    return a["launches_total"] + bc["launches_total"]
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

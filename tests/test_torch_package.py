@@ -48,7 +48,7 @@ def test_port_sources_name_no_jax_module_in_an_import():
     orbax or the JAX package."""
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "border_tpu_torch").rglob("*.py")) + [
-        root / "chip_smoke.py"]
+        root / "chip_smoke.py", root / "tests" / "helpers" / "torch_dist_worker.py"]
     assert len(files) >= 57
     for new in ("models/mlp.py", "models/iqn.py", "agents/iqn.py",
                 "envs/classic_control.py", "envs/breakout.py",
@@ -58,7 +58,11 @@ def test_port_sources_name_no_jax_module_in_an_import():
                 "agents/iql.py", "envs/reacher.py", "data/datasets.py",
                 "data/minari.py", "data/__init__.py", "train/offline.py",
                 "envs/native.py", "envs/py_env.py", "envs/gym_bridge.py",
-                "envs/ale.py", "train/host.py", "train/async_trainer.py"):
+                "envs/ale.py", "train/host.py", "train/async_trainer.py",
+                "parallel/__init__.py", "parallel/distributed.py",
+                "parallel/mesh.py", "parallel/sharded.py",
+                "parallel/async_sharded.py", "parallel/gspmd.py",
+                "utils/collectives.py", "examples/sharded_dqn.py"):
         assert root / "border_tpu_torch" / new in files
     banned = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|border_tpu)(?:[.\s]|$)",
@@ -168,7 +172,7 @@ EXAMPLES = ["dqn_pong", "play_pong", "dqn_cartpole", "convert_policy",
             "iqn_seaquest", "async_dqn_pong", "dqn_pong_host",
             "dqn_cartpole_native", "sac_pendulum", "sac_reacher",
             "offline_pendulum_medium", "offline_fetch_reacher",
-            "offline_pendulum", "dqn_gymnasium", "sac_gymnasium"]
+            "offline_pendulum", "dqn_gymnasium", "sac_gymnasium", "sharded_dqn"]
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
