@@ -34,6 +34,7 @@ from border_tpu_torch.core import spaces
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.models.mlp import EnsembleMLP, GaussianHeadMLP
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils.counters import advance, new_counts
 from border_tpu_torch.utils.device import resolve_device
 
 
@@ -62,6 +63,9 @@ class AWACState:
     critic_opt: torch.optim.Optimizer
     n_opts: int
     n_samples: int
+    counts: Optional[torch.Tensor] = None  # on a CUDA device
+
+    COUNTERS = ("n_opts", "n_samples")
 
 
 class GaussianActorAgent(Agent):
@@ -96,7 +100,7 @@ class GaussianActorAgent(Agent):
         return mean.clamp(self.act_low, self.act_high)
 
     def on_env_step(self, state, n: int):
-        state.n_samples += n
+        advance(state, "n_samples", n)
         return state
 
     def _actor_step(self, state, obs, act2d, w) -> torch.Tensor:
@@ -140,6 +144,7 @@ class AWAC(GaussianActorAgent):
             actor_opt=self.make_actor_opt(actor.parameters()),
             critic_opt=self.make_critic_opt(critic.parameters()),
             n_opts=0, n_samples=0,
+            counts=new_counts(device, (0, 0)),
         )
 
     def update(
@@ -180,7 +185,7 @@ class AWAC(GaussianActorAgent):
 
         a_loss = self._actor_step(state, obs, act2d, w)
         polyak_update(c.tau, critic, state.critic_target_params)
-        state.n_opts += 1
+        advance(state, "n_opts", 1)
         metrics = {
             "loss_critic": c_loss.detach(),
             "loss_actor": a_loss,

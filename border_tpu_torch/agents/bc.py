@@ -25,6 +25,7 @@ from border_tpu_torch.core import spaces
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.models.mlp import MLP
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils.counters import advance, count, new_counts
 from border_tpu_torch.utils.device import resolve_device
 
 
@@ -42,6 +43,9 @@ class BCState:
     opt_state: torch.optim.Optimizer
     n_opts: int
     n_samples: int
+    counts: Optional[torch.Tensor] = None  # on a CUDA device
+
+    COUNTERS = ("n_opts", "n_samples")
 
 
 class BC(Agent):
@@ -66,7 +70,8 @@ class BC(Agent):
         net.reset_parameters(param_generator(seed_or_gen))
         net = net.to(device)
         return BCState(params=net, opt_state=self.make_opt(net.parameters()),
-                       n_opts=0, n_samples=0)
+                       n_opts=0, n_samples=0,
+                       counts=new_counts(device, (0, 0)))
 
     @torch.no_grad()
     def select_action(self, state: BCState, obs: torch.Tensor,
@@ -77,7 +82,7 @@ class BC(Agent):
         return out.reshape((obs.shape[0],) + self.act_shape)
 
     def on_env_step(self, state: BCState, n: int) -> BCState:
-        state.n_samples += n
+        advance(state, "n_samples", n)
         return state
 
     def update(
@@ -91,9 +96,9 @@ class BC(Agent):
             loss = -logp.gather(1, act.long()[:, None]).mean()
         else:
             loss = ((out - act.reshape(act.shape[0], -1)) ** 2).mean()
-        minimize(state.opt_state, loss, self.config.lr, state.n_opts,
+        minimize(state.opt_state, loss, self.config.lr, count(state, "n_opts"),
                  group=self.axis_group)
-        state.n_opts += 1
+        advance(state, "n_opts", 1)
         return state, {"loss": loss.detach()}, None
 
     def policy_params(self, state: BCState) -> nn.Module:

@@ -14,8 +14,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from border_tpu_torch.envs.pixel import true_div
+from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.models.mlp import EnsembleMLP
 from border_tpu_torch.utils import collectives
+from border_tpu_torch.utils.counters import Count
 
 # a learning rate: a constant, or a schedule of the optimizer's step count
 LearningRate = Union[float, Callable[[int], float]]
@@ -67,16 +70,30 @@ def polyak_update(tau: float, online: nn.Module, target: nn.Module) -> None:
     torch._foreach_add_(tgt, scaled)
 
 
+@torch.no_grad()
 def periodic_polyak(
-    n_opts: int, interval: int, tau: float, online: nn.Module,
+    n_opts: Count, interval: int, tau: float, online: nn.Module,
     target: nn.Module,
 ) -> None:
     """Soft-update every ``interval`` optimizer steps.  With interval=1,
     τ=0.005 this is per-step polyak; with interval=10_000, τ=1.0 it is a
-    hard DQN target swap.  ``n_opts`` is a host int, so the test costs no
-    device sync."""
-    if n_opts % interval == 0:
-        polyak_update(tau, online, target)
+    hard DQN target swap.
+
+    A host-int ``n_opts`` (the CPU path) branches on the host.  A device
+    count (the CUDA path, which a graph replays) runs the update at every
+    step with a masked τ: ``tgt·(1−τ') + online·τ'`` with τ' = τ on a sync
+    step, else 0, so the target keeps its values off the sync steps and
+    gets :func:`polyak_update`'s two products and one sum on them."""
+    if not torch.is_tensor(n_opts):
+        if n_opts % interval == 0:
+            polyak_update(tau, online, target)
+        return
+    on = n_opts % interval == 0
+    tgt = list(target.parameters())
+    scaled = torch._foreach_mul(list(online.parameters()),
+                                torch.where(on, tau, 0.0))
+    torch._foreach_mul_(tgt, torch.where(on, 1.0 - tau, 1.0))
+    torch._foreach_add_(tgt, scaled)
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int,
@@ -87,7 +104,12 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
         raise ValueError(f"decay_steps must be positive, got {decay_steps}")
     f32 = np.float32
 
-    def schedule(count: int) -> float:
+    def schedule(count: Count):
+        if torch.is_tensor(count):  # a device count: the same steps on it
+            k = count.clamp_max(decay_steps).float() * float(f32(np.pi))
+            cosine = (torch.cos(true_div(k, float(decay_steps))) + 1.0) * 0.5
+            return ((cosine * float(f32(1 - alpha)) + float(f32(alpha)))
+                    * float(f32(init_value)))
         k = f32(min(count, decay_steps))
         cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * k / f32(decay_steps)))
         return float(f32(init_value) * (f32(1 - alpha) * cosine + f32(alpha)))
@@ -95,10 +117,29 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
     return schedule
 
 
-def lr_at(lr: LearningRate, count: int) -> float:
+def lr_at(lr: LearningRate, count: Count):
     """The learning rate of the update that follows ``count`` updates: optax
     evaluates a schedule at the step count before its increment."""
     return lr(count) if callable(lr) else lr
+
+
+def set_lr(opt: torch.optim.Optimizer, lr) -> None:
+    """Each parameter group's rate set to ``lr``: written into the group's
+    rate tensor where it has one (a capturable optimizer on the card, whose
+    step a graph replays), else stored as a Python float."""
+    for group in opt.param_groups:
+        if torch.is_tensor(group["lr"]):
+            if torch.is_tensor(lr):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
+        elif torch.is_tensor(lr) and lr.is_cuda:
+            # a Python rate would be frozen into a captured graph
+            raise ConfigError(
+                "a learning-rate schedule on the card needs a capturable "
+                "optimizer with a rate tensor ('adam' or 'adamw')")
+        else:
+            group["lr"] = float(lr)
 
 
 @torch.no_grad()
@@ -120,19 +161,19 @@ def maybe_pmean(params: Iterable[torch.Tensor], group) -> None:
 
 
 def minimize(opt: torch.optim.Optimizer, loss: torch.Tensor,
-             lr: Optional[LearningRate] = None, count: int = 0,
+             lr: Optional[LearningRate] = None, count: Count = 0,
              inputs: Optional[List[torch.Tensor]] = None,
              group=None) -> None:
     """One step of ``opt`` on ``loss``: zero the grads, backpropagate (into
     ``inputs`` alone when given), average the gradients over ``group``
     (:func:`maybe_pmean`), step.  A schedule ``lr`` sets the rate
-    ``lr(count)`` first; ``count`` is a host int, so that costs no sync."""
+    ``lr(count)`` first: of a host int on the CPU, of the device count on
+    the card (:func:`set_lr`), so neither costs a sync."""
     opt.zero_grad(set_to_none=True)
     loss.backward(inputs=inputs)
     maybe_pmean((p for g in opt.param_groups for p in g["params"]), group)
     if callable(lr):
-        for group in opt.param_groups:
-            group["lr"] = lr(count)
+        set_lr(opt, lr(count))
     opt.step()
 
 
@@ -175,18 +216,30 @@ def make_optimizer(
     eps 1e-8 outside the sqrt, no eps_root, bias-corrected; ``adamw`` adds
     optax's default decoupled weight decay 1e-4; ``sgd`` is plain SGD.
     ``lr`` may be a schedule; the optimizer then starts at ``lr(0)`` and
-    :func:`minimize` sets each step's rate."""
+    :func:`minimize` sets each step's rate.
+
+    Over parameters on a CUDA device, Adam and AdamW are built with
+    ``capturable=True`` and a float32 rate tensor: their step count, bias
+    corrections and rate stay on the device, so a CUDA graph can replay the
+    step.  The eager path on the card uses the same optimizer, so eager and
+    replayed updates are the same program."""
     lr = lr_at(lr, 0)
+    betas = (kw.get("b1", 0.9), kw.get("b2", 0.999))
+    eps = kw.get("eps", 1e-8)
+
+    def adam(cls, params, **extra):
+        params = list(params)
+        dev = params[0].device if params else torch.device("cpu")
+        if dev.type != "cuda":
+            return cls(params, lr=lr, betas=betas, eps=eps, **extra)
+        return cls(params, lr=torch.tensor(lr, dtype=torch.float32, device=dev),
+                   betas=betas, eps=eps, capturable=True, **extra)
+
     if name == "adam":
-        return lambda p: torch.optim.Adam(
-            p, lr=lr, betas=(kw.get("b1", 0.9), kw.get("b2", 0.999)),
-            eps=kw.get("eps", 1e-8),
-        )
+        return lambda p: adam(torch.optim.Adam, p)
     if name == "adamw":
-        return lambda p: torch.optim.AdamW(
-            p, lr=lr, betas=(kw.get("b1", 0.9), kw.get("b2", 0.999)),
-            eps=kw.get("eps", 1e-8), weight_decay=kw.get("weight_decay", 1e-4),
-        )
+        return lambda p: adam(torch.optim.AdamW, p,
+                              weight_decay=kw.get("weight_decay", 1e-4))
     if name == "sgd":
         return lambda p: torch.optim.SGD(p, lr=lr)
     raise ValueError(f"unknown optimizer {name!r}")

@@ -12,7 +12,10 @@ The state holds the online and target networks as ``nn.Module``s and a
 ``torch.optim`` optimizer; ``update`` steps them in place and returns the
 same state.  ``n_opts`` and ``n_samples`` are host ints: both advance by a
 fixed amount per call, so the ε and learning-rate schedules and the target
-cadence need no device→host sync.
+cadence need no device→host sync.  On a CUDA device the state also holds
+them as a device tensor (:mod:`border_tpu_torch.utils.counters`), which the
+schedules and the target cadence read there, so a CUDA graph of an update
+or an env step replays them.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ import copy
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -33,12 +35,20 @@ from border_tpu_torch.agents.common import (
     maybe_pmean,
     param_generator,
     periodic_polyak,
+    set_lr,
 )
 from border_tpu_torch.core import spaces
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.models.mlp import MLP, DuelingMLP
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils.counters import (
+    Count,
+    advance,
+    count,
+    linear_f32,
+    new_counts,
+)
 from border_tpu_torch.utils.device import resolve_device
 
 
@@ -84,6 +94,10 @@ class DQNState:
     opt_state: torch.optim.Optimizer
     n_opts: int  # optimizer steps
     n_samples: int  # env steps seen (drives ε decay)
+    # (n_opts, n_samples) on a CUDA device, None on the CPU
+    counts: Optional[torch.Tensor] = None
+
+    COUNTERS = ("n_opts", "n_samples")
 
 
 class DQN(Agent):
@@ -126,23 +140,28 @@ class DQN(Agent):
             opt_state=self.make_opt(net.parameters()),
             n_opts=0,
             n_samples=0,
+            counts=new_counts(device, (0, 0)),
         )
 
     # -- acting ------------------------------------------------------------
-    def epsilon(self, state: DQNState) -> float:
-        """Linear decay, in float32 like the JAX version."""
+    def epsilon(self, state: DQNState):
+        """Linear decay, in float32 like the JAX version: a float on the
+        CPU, a device scalar on the card."""
         c = self.config
-        f32 = np.float32
-        frac = np.clip(f32(state.n_samples) / f32(c.eps_final_step), 0, 1)
-        return float(f32(c.eps_start) + frac * (f32(c.eps_final) - f32(c.eps_start)))
+        return linear_f32(count(state, "n_samples"), c.eps_final_step,
+                          c.eps_start, c.eps_final)
 
     @torch.no_grad()
     def select_action(self, state: DQNState, obs: torch.Tensor,
                       gen: torch.Generator) -> torch.Tensor:
         q = state.params(obs)  # [B, A]
         if self.config.explorer == "softmax":
+            # torch.multinomial's own one-draw path (argmax of p over
+            # exponential draws) without its host-side validity check,
+            # which syncs and so cannot be captured: the same actions
             p = torch.softmax(q, dim=-1)
-            return torch.multinomial(p, 1, generator=gen)[:, 0].to(torch.int32)
+            e = torch.empty_like(p).exponential_(1, generator=gen)
+            return torch.argmax(p / e, dim=-1).to(torch.int32)
         greedy = torch.argmax(q, dim=-1).to(torch.int32)
         random = torch.randint(0, q.shape[-1], greedy.shape, generator=gen,
                                device=q.device, dtype=torch.int32)
@@ -156,15 +175,19 @@ class DQN(Agent):
         return torch.argmax(state.params(obs), dim=-1).to(torch.int32)
 
     def on_env_step(self, state: DQNState, n: int) -> DQNState:
-        state.n_samples += n
+        advance(state, "n_samples", n)
         return state
 
     # -- learning (≙ update_critic, dqn/base.rs:60-160) --------------------
-    def _lr(self, n_opts: int) -> float:
-        """optax.linear_schedule at update count ``n_opts``."""
+    def _lr(self, n_opts: Count):
+        """optax.linear_schedule at update count ``n_opts``: of a host int
+        in double precision, of a device count in float32."""
         c = self.config
         if not c.lr_decay_steps:
             return c.lr
+        if torch.is_tensor(n_opts):
+            return linear_f32(n_opts, c.lr_decay_steps, c.lr,
+                              c.lr * c.lr_final_frac)
         frac = min(n_opts, c.lr_decay_steps) / c.lr_decay_steps
         return c.lr + frac * (c.lr * c.lr_final_frac - c.lr)
 
@@ -202,11 +225,11 @@ class DQN(Agent):
         maybe_pmean(net.parameters(), self.axis_group)
         if c.max_grad_norm is not None:
             clip_grads_(net.parameters(), c.max_grad_norm)
-        for group in opt.param_groups:
-            group["lr"] = self._lr(state.n_opts)
+        if c.lr_decay_steps:
+            set_lr(opt, self._lr(count(state, "n_opts")))
         opt.step()
-        state.n_opts += 1
-        periodic_polyak(state.n_opts, c.soft_update_interval, c.tau,
+        advance(state, "n_opts", 1)
+        periodic_polyak(count(state, "n_opts"), c.soft_update_interval, c.tau,
                         net, tgt_net)
         pred = pred.detach()
         metrics = {

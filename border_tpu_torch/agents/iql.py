@@ -29,6 +29,7 @@ from border_tpu_torch.agents.common import (
 from border_tpu_torch.core import spaces
 from border_tpu_torch.models.mlp import MLP, EnsembleMLP, GaussianHeadMLP
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils.counters import advance, new_counts
 from border_tpu_torch.utils.device import resolve_device
 
 
@@ -61,6 +62,9 @@ class IQLState:
     value_opt: torch.optim.Optimizer
     n_opts: int
     n_samples: int
+    counts: Optional[torch.Tensor] = None  # on a CUDA device
+
+    COUNTERS = ("n_opts", "n_samples")
 
 
 class IQL(GaussianActorAgent):
@@ -94,6 +98,7 @@ class IQL(GaussianActorAgent):
             critic_opt=self.make_critic_opt(critic.parameters()),
             value_opt=self.make_value_opt(value.parameters()),
             n_opts=0, n_samples=0,
+            counts=new_counts(device, (0, 0)),
         )
 
     def update(
@@ -130,7 +135,7 @@ class IQL(GaussianActorAgent):
         a_loss = self._actor_step(state, obs, act2d, w)
 
         polyak_update(c.tau, critic, state.critic_target_params)
-        state.n_opts += 1
+        advance(state, "n_opts", 1)
         with torch.no_grad():
             q_now = critic(critic_input(obs, act2d))[..., 0].min(0).values
         metrics = {

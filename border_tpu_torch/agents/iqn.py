@@ -11,7 +11,8 @@
 - τ-polyak soft update every ``soft_update_interval`` optimizer steps.
 
 As in the port's DQN the state holds ``nn.Module``s and a ``torch.optim``
-optimizer stepped in place, and ``n_opts``/``n_samples`` are host ints.
+optimizer stepped in place, and ``n_opts``/``n_samples`` are host ints
+with a device twin on the card (:mod:`border_tpu_torch.utils.counters`).
 An update draws three sets of τ and an action one; ``update`` takes them
 ready-made through ``taus`` so a test can feed both packages the same.
 """
@@ -23,7 +24,6 @@ import dataclasses
 import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -39,6 +39,7 @@ from border_tpu_torch.core import spaces
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.models.iqn import IQNNet
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils.counters import advance, count, linear_f32, new_counts
 from border_tpu_torch.utils.device import resolve_device
 
 
@@ -97,6 +98,9 @@ class IQNState:
     opt_state: torch.optim.Optimizer
     n_opts: int
     n_samples: int
+    counts: Optional[torch.Tensor] = None  # on a CUDA device
+
+    COUNTERS = ("n_opts", "n_samples")
 
 
 class IQN(Agent):
@@ -132,6 +136,7 @@ class IQN(Agent):
             opt_state=self.make_opt(net.parameters()),
             n_opts=0,
             n_samples=0,
+            counts=new_counts(device, (0, 0)),
         )
 
     # -- acting: ε-greedy over τ-averaged Q --------------------------------
@@ -141,12 +146,12 @@ class IQN(Agent):
                                obs.shape[0], obs.device)
         return net(obs, taus).mean(dim=1)  # [B, K, A] → [B, A]
 
-    def epsilon(self, state: IQNState) -> float:
-        """Linear decay, in float32 like the JAX version."""
+    def epsilon(self, state: IQNState):
+        """Linear decay, in float32 like the JAX version: a float on the
+        CPU, a device scalar on the card."""
         c = self.config
-        f32 = np.float32
-        frac = np.clip(f32(state.n_samples) / f32(c.eps_final_step), 0, 1)
-        return float(f32(c.eps_start) + frac * (f32(c.eps_final) - f32(c.eps_start)))
+        return linear_f32(count(state, "n_samples"), c.eps_final_step,
+                          c.eps_start, c.eps_final)
 
     @torch.no_grad()
     def select_action(self, state: IQNState, obs: torch.Tensor,
@@ -166,7 +171,7 @@ class IQN(Agent):
                             dim=-1).to(torch.int32)
 
     def on_env_step(self, state: IQNState, n: int) -> IQNState:
-        state.n_samples += n
+        advance(state, "n_samples", n)
         return state
 
     # -- learning ----------------------------------------------------------
@@ -209,8 +214,8 @@ class IQN(Agent):
         loss.backward()
         maybe_pmean(net.parameters(), self.axis_group)
         opt.step()
-        state.n_opts += 1
-        periodic_polyak(state.n_opts, c.soft_update_interval, c.tau,
+        advance(state, "n_opts", 1)
+        periodic_polyak(count(state, "n_opts"), c.soft_update_interval, c.tau,
                         net, tgt_net)
         pred = pred.detach()
         # PER priority: mean TD over quantile pairs

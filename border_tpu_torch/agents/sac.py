@@ -39,6 +39,7 @@ from border_tpu_torch.core import spaces
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.models.mlp import EnsembleMLP, GaussianHeadMLP
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils.counters import advance, new_counts
 from border_tpu_torch.utils.device import resolve_device
 
 
@@ -76,6 +77,9 @@ class SACState:
     alpha_opt: torch.optim.Optimizer
     n_opts: int
     n_samples: int
+    counts: Optional[torch.Tensor] = None  # on a CUDA device
+
+    COUNTERS = ("n_opts", "n_samples")
 
 
 class SAC(Agent):
@@ -122,6 +126,7 @@ class SAC(Agent):
             alpha_opt=self.make_alpha_opt([log_alpha]),
             n_opts=0,
             n_samples=0,
+            counts=new_counts(device, (0, 0)),
         )
 
     # -- policy ------------------------------------------------------------
@@ -149,7 +154,7 @@ class SAC(Agent):
         return torch.tanh(mean) * self.act_scale + self.act_bias
 
     def on_env_step(self, state: SACState, n: int) -> SACState:
-        state.n_samples += n
+        advance(state, "n_samples", n)
         return state
 
     # -- learning ----------------------------------------------------------
@@ -194,7 +199,7 @@ class SAC(Agent):
             al_loss = torch.zeros((), device=reward.device)
 
         polyak_update(c.tau, critic, state.critic_target_params)
-        state.n_opts += 1
+        advance(state, "n_opts", 1)
         # TD error for PER: the ensemble's mean Q after the update − target
         with torch.no_grad():
             td_err = critic(critic_input(obs, act))[..., 0].mean(0) - target

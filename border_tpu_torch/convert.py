@@ -61,6 +61,7 @@ from border_tpu_torch.models.mlp import EnsembleMLP
 from border_tpu_torch.replay.buffer import ReplayBufferState, Transition, map_obs
 from border_tpu_torch.replay.frame_buffer import FrameReplayState
 from border_tpu_torch.replay.sum_tree import SumTreeState
+from border_tpu_torch.utils.counters import new_counts, set_counts
 from border_tpu_torch.utils.device import DeviceLike, as_generator, resolve_device
 
 _CNN_LAYERS = (("Conv_0", "conv0"), ("Conv_1", "conv1"), ("Conv_2", "conv2"),
@@ -224,8 +225,8 @@ def _agent_state(agent, jax_state, obs_space, act_space, device, *opt_names):
     for name in _NETS[type(st)]:
         net = getattr(st, name)
         net.load_state_dict(net_state_dict(net, getattr(jax_state, name)))
-    st.n_opts = int(np.asarray(jax_state.n_opts))
-    st.n_samples = int(np.asarray(jax_state.n_samples))
+    set_counts(st, n_opts=int(np.asarray(jax_state.n_opts)),
+               n_samples=int(np.asarray(jax_state.n_samples)))
     return st
 
 
@@ -385,6 +386,7 @@ def frame_replay_state(js, frame_hw: Tuple[int, int] = (84, 84),
     frames = f.reshape(n, slots, -1)[:, :, : h * w].reshape(n, slots, h, w)
     tree = getattr(js, "tree", None)
     cap = slots if capacity is None else capacity
+    total = int(np.asarray(js.total))
     return FrameReplayState(
         frames=_t(frames, device),
         act=_t(js.act, device, torch.int32)[:, :cap],
@@ -392,8 +394,9 @@ def frame_replay_state(js, frame_hw: Tuple[int, int] = (84, 84),
         terminated=_t(js.terminated, device, torch.bool)[:, :cap],
         truncated=_t(js.truncated, device, torch.bool)[:, :cap],
         age=_t(js.age, device, torch.int32)[:, :cap],
-        total=int(np.asarray(js.total)),
+        total=total,
         tree=None if tree is None else sum_tree_state(tree, device),
+        counts=new_counts(resolve_device(device), (total,)),
     )
 
 
@@ -401,11 +404,13 @@ def replay_state(js, device: DeviceLike = None) -> ReplayBufferState:
     """JAX ``ReplayBufferState`` of the flat buffer → the port's, with its
     tree when prioritized."""
     tree = getattr(js, "tree", None)
+    cursor, size = int(np.asarray(js.cursor)), int(np.asarray(js.size))
     return ReplayBufferState(
         data=_copy_fields(Transition, js.data, device),
-        cursor=int(np.asarray(js.cursor)),
-        size=int(np.asarray(js.size)),
+        cursor=cursor,
+        size=size,
         tree=None if tree is None else sum_tree_state(tree, device),
+        counts=new_counts(resolve_device(device), (cursor, size)),
     )
 
 
@@ -578,5 +583,5 @@ def load_jax_policy(agent, path: str, obs_space, act_space,
         leaf = children[name]
         if not isinstance(leaf, int) or arrays[leaf].shape != ():
             raise ValueError(f"{path}: {name} is not a scalar leaf")
-        setattr(st, name, int(arrays[leaf]))
+        set_counts(st, **{name: int(arrays[leaf])})
     return st

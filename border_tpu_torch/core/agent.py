@@ -85,6 +85,11 @@ class Agent:
         """One optimization step; returns (state, metrics, td_errors|None)."""
         raise NotImplementedError
 
+    # -- model sync (≙ SyncModel, border-async-trainer/src/sync_model.rs) --
+    def model_info(self, state: AgentState) -> Tuple[int, Any]:
+        """(opt-step counter, inference-relevant params) for actor sync."""
+        return state.n_opts, self.policy_params(state)
+
     def policy_params(self, state: AgentState) -> Any:
         """The parameters action selection needs."""
         raise NotImplementedError

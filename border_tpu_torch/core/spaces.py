@@ -1,7 +1,9 @@
 """Observation/action space descriptions (≙ border_tpu/core/spaces.py).
 
 Static metadata objects; ``zero()`` mints a torch tensor (a dict of them
-for :class:`Dict`) used to size buffers and networks before the first step.
+for :class:`Dict`) used to size buffers and networks before the first step,
+and ``sample(gen)`` one random element, drawn from an explicit
+``torch.Generator`` on the generator's device (the JAX spaces take a key).
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ import torch
 class Space:
     shape: Tuple[int, ...]
     dtype: Any
+
+    def sample(self, gen: torch.Generator) -> torch.Tensor:
+        raise NotImplementedError
 
     def zero(self, device=None) -> torch.Tensor:
         return torch.zeros(self.shape, dtype=self.dtype, device=device)
@@ -39,6 +44,11 @@ class Discrete(Space):
     def shape(self) -> Tuple[int, ...]:
         return ()
 
+    def sample(self, gen: torch.Generator) -> torch.Tensor:
+        """Uniform over ``{0, …, n−1}``."""
+        return torch.randint(0, self.n, (), generator=gen, dtype=self.dtype,
+                             device=gen.device)
+
     def contains(self, x) -> bool:
         x = torch.as_tensor(x)
         return bool(((x >= 0) & (x < self.n)).all())
@@ -61,6 +71,18 @@ class Box(Space):
         if not self.shape:
             s = np.shape(self.low) or np.shape(self.high)
             object.__setattr__(self, "shape", tuple(s))
+
+    def sample(self, gen: torch.Generator) -> torch.Tensor:
+        """Uniform over the box where both bounds are finite, standard
+        normal where either is not (as the JAX space)."""
+        dev = gen.device
+        low = torch.as_tensor(self.low, dtype=self.dtype).to(dev).expand(self.shape)
+        high = torch.as_tensor(self.high, dtype=self.dtype).to(dev).expand(self.shape)
+        finite = torch.isfinite(low) & torch.isfinite(high)
+        u = torch.rand(self.shape, generator=gen, dtype=self.dtype, device=dev)
+        z = torch.randn(self.shape, generator=gen, dtype=self.dtype, device=dev)
+        bounded = low + u * torch.where(finite, high - low, 2.0)
+        return torch.where(finite, bounded, z)
 
     def contains(self, x) -> bool:
         x = torch.as_tensor(x).double()
@@ -93,6 +115,10 @@ class Dict(Space):
     @property
     def dtype(self):  # type: ignore[override]
         return {k: v.dtype for k, v in self.spaces}
+
+    def sample(self, gen: torch.Generator):
+        """One sample of each entry, in the sorted key order."""
+        return {k: s.sample(gen) for k, s in self.spaces}
 
     def zero(self, device=None):
         return {k: s.zero(device) for k, s in self.spaces}

@@ -46,8 +46,23 @@ def pixel_grid(device: torch.device, denom: int = FRAME_H - 1):
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` as a correctly rounded float32 division on every device
-    (see :func:`pixel_grid`): the divisor is a tensor on ``x``'s device."""
-    return x / const_tensor((c,), torch.float32, x.device)
+    (see :func:`pixel_grid`): the divisor is a 0-dim tensor on ``x``'s
+    device, so the quotient has ``x``'s shape."""
+    return x / const_tensor(c, torch.float32, x.device)
+
+
+def to_gray_84(rgb: torch.Tensor) -> torch.Tensor:
+    """RGB ``[..., H, W, 3]`` uint8 → grayscale ``[..., 84, 84]`` uint8:
+    luma weights in float32, then a bilinear resize that, like
+    ``jax.image.resize``'s, widens its triangle kernel by the scale factor
+    where it shrinks (antialiasing), clipped and truncated to uint8."""
+    x = rgb.float()
+    gray = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    lead, (h, w) = gray.shape[:-2], gray.shape[-2:]
+    out = torch.nn.functional.interpolate(
+        gray.reshape(-1, 1, h, w), size=(FRAME_H, FRAME_W), mode="bilinear",
+        align_corners=False, antialias=True)
+    return out.reshape(*lead, FRAME_H, FRAME_W).clamp(0, 255).to(torch.uint8)
 
 
 def first_free(on: torch.Tensor) -> torch.Tensor:

@@ -41,3 +41,7 @@ class RecordValueTypeError(BorderTpuError, TypeError):
 
 class ConfigError(BorderTpuError, ValueError):
     """Invalid component configuration."""
+
+
+class EnvironmentError_(BorderTpuError, RuntimeError):
+    """Environment construction/step failure (native pool, registry)."""

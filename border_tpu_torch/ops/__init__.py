@@ -8,4 +8,8 @@ kernel against it on the card.
 
 from border_tpu_torch.ops.frame_gather import gather_frames, gather_frames_ref
 
-__all__ = ["gather_frames", "gather_frames_ref"]
+# the wrappers that count their kernel's launches (``launches``) and the
+# launches they record into a capturing CUDA graph (``captured``)
+COUNTED = (gather_frames,)
+
+__all__ = ["COUNTED", "gather_frames", "gather_frames_ref"]

@@ -10,7 +10,11 @@ On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/frame_gather.cu`` (built with ``nvcc`` at first use, bound with
 ``ctypes``) on the current stream, or raises.  On a CPU tensor it runs the
 plain version :func:`gather_frames_ref`.  ``gather_frames.launches`` counts
-the kernel launches.
+the kernel launches.  A call on a stream that a CUDA graph is capturing
+launches nothing: it records the launch into the graph and counts it in
+``gather_frames.captured``; every replay of that graph launches it, and the
+graph's replay (:mod:`border_tpu_torch.train.graphs`) adds its captured
+launches to ``launches``.
 """
 
 from __future__ import annotations
@@ -82,8 +86,12 @@ def gather_frames(frames: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             "frame-gather kernel launch failed: "
             + lib.border_cuda_error_string(err).decode()
         )
-    gather_frames.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        gather_frames.captured += 1
+    else:
+        gather_frames.launches += 1
     return out
 
 
 gather_frames.launches = 0
+gather_frames.captured = 0

@@ -199,7 +199,10 @@ def _map_rows(x, n: int, fn):
 
 class GSPMDTrainer(Trainer):
     """Trainer over a dp×tp mesh: env state, frame ring and batch rows
-    sharded over ``actors``, weights column-sharded over ``model``."""
+    sharded over ``actors``, weights column-sharded over ``model``.  The
+    chunk runs eagerly (its collectives are outside any graph)."""
+
+    graphable = False
 
     def __init__(
         self,

@@ -83,8 +83,11 @@ class ShardedTrainer(Trainer):
     owns ``num_envs / n`` envs and a replay shard of ``capacity`` (so the
     global capacity is n× the single-device config, matching per-actor
     buffers).  ``mesh``: a ``DeviceMesh`` with the axis ``axis`` (default:
-    every rank of the process group on one axis).
+    every rank of the process group on one axis).  The chunk runs eagerly
+    (its collectives are outside any graph).
     """
+
+    graphable = False
 
     def __init__(
         self,

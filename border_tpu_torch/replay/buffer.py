@@ -16,7 +16,10 @@ transition containers (≙ border_tpu/replay/buffer.py).
 As in the port's frame buffer, ``push`` and ``update_priority`` write in
 place and return the same state, ``cursor`` and ``size`` are host ints
 (they advance by fixed amounts, so the draw range costs no device→host
-sync), and a uniform batch carries ``weight=None``.
+sync), and a uniform batch carries ``weight=None``.  On a CUDA device the
+state also holds ``cursor`` and ``size`` as a device tensor
+(:mod:`border_tpu_torch.utils.counters`): the card's push slots and draw
+ranges read it, so a CUDA graph of a push or a sample replays them.
 """
 
 from __future__ import annotations
@@ -27,7 +30,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from border_tpu_torch.envs.pixel import true_div
 from border_tpu_torch.replay.sum_tree import SumTree, SumTreeState
+from border_tpu_torch.utils.counters import (
+    Count,
+    count,
+    new_counts,
+    randint_below,
+)
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -93,10 +103,15 @@ class PerConfig:
     normalize_all: bool = True
     eps: float = 1e-6
 
-    def beta(self, n_opts: int) -> float:
-        """Linear β annealing (≙ IwScheduler::beta, iw_scheduler.rs:6-46) on
-        a host int, in float32 like the JAX version."""
+    def beta(self, n_opts: Count):
+        """Linear β annealing (≙ IwScheduler::beta, iw_scheduler.rs:6-46) in
+        float32 like the JAX version: a float of a host int, a 0-dim tensor
+        of a device count (the same float32 operations)."""
         f32 = np.float32
+        if torch.is_tensor(n_opts):
+            frac = true_div(n_opts.float(), float(f32(self.n_opts_final)))
+            return (frac.clamp(0.0, 1.0) * float(f32(self.beta_final - self.beta_0))
+                    + float(f32(self.beta_0)))
         frac = np.clip(f32(n_opts) / f32(self.n_opts_final), f32(0), f32(1))
         return float(f32(self.beta_0) + frac * f32(self.beta_final - self.beta_0))
 
@@ -107,6 +122,9 @@ class ReplayBufferState:
     cursor: int  # next write position
     size: int  # number of valid entries
     tree: Optional[SumTreeState] = None  # PER state (None when uniform)
+    counts: Optional[torch.Tensor] = None  # (cursor, size) on a CUDA device
+
+    COUNTERS = ("cursor", "size")
 
 
 class ReplayBuffer:
@@ -159,6 +177,7 @@ class ReplayBuffer:
         return ReplayBufferState(
             data=data, cursor=0, size=0,
             tree=self.tree.init() if self.tree is not None else None,
+            counts=new_counts(self.device, (0, 0)),
         )
 
     # -- ingest ------------------------------------------------------------
@@ -170,7 +189,10 @@ class ReplayBuffer:
         c, cap = state.cursor, self.capacity
         wraps = c + n > cap
         idx = None
-        if wraps or self.tree is not None:
+        if state.counts is not None:  # the device cursor: always indexed
+            idx = (state.counts[0] + torch.arange(n, device=self.device)) % cap
+            wraps = True
+        elif wraps or self.tree is not None:
             idx = torch.arange(c, c + n, device=self.device) % cap
         where = idx if wraps else slice(c, c + n)
 
@@ -189,6 +211,9 @@ class ReplayBuffer:
             self.tree.update(state.tree, idx, state.tree.max_priority.expand(n))
         state.cursor = (c + n) % cap
         state.size = min(state.size + n, cap)
+        if state.counts is not None:
+            state.counts[0].add_(n).remainder_(cap)
+            state.counts[1].add_(n).clamp_max_(cap)
         return state
 
     def process_step(
@@ -216,6 +241,8 @@ class ReplayBuffer:
         the integers the generator would give: the index itself for 1-step
         buffers, the "steps before the cursor" ``d`` for n-step ones."""
         dev = self.device
+        if state.counts is not None:
+            return self._draw_on_card(state, gen, batch_size, raw)
         if self.n_step > 1:
             # d ∈ [(n−1)·stride, size): the whole n-step window is written
             lo = (self.n_step - 1) * self.stride
@@ -233,16 +260,35 @@ class ReplayBuffer:
         return torch.randint(0, max(state.size, 1), (batch_size,),
                              generator=gen, device=dev)
 
+    def _draw_on_card(self, state: ReplayBufferState, gen, batch_size: int,
+                      raw: Optional[torch.Tensor]) -> torch.Tensor:
+        """:meth:`draw` with the cursor and size of the device counts (the
+        same ranges, drawn by :func:`randint_below`)."""
+        cursor, size = state.counts[0], state.counts[1]
+        if self.n_step > 1:
+            lo = (self.n_step - 1) * self.stride
+            d = raw if raw is not None else lo + randint_below(
+                (size - lo).clamp_min(1), (batch_size,), gen)
+            d = torch.minimum(d, (size - 1).clamp_min(0))
+            return (cursor - 1 - d) % self.capacity
+        if raw is not None:
+            return raw
+        return randint_below(size.clamp_min(1), (batch_size,), gen)
+
     @torch.no_grad()
     def draw_per(self, state: ReplayBufferState, gen: Optional[torch.Generator],
-                 batch_size: int, n_opts: int = 0,
+                 batch_size: int, n_opts: Count = 0,
                  u: Optional[torch.Tensor] = None):
         """Prioritized draw: ``(idx, weight)``.  ``u`` injects the descent's
         uniform draws."""
         idx = self.tree.sample(state.tree, batch_size, gen=gen, u=u)
-        idx = idx.clamp_max(max(state.size, 1) - 1)
+        size = count(state, "size")
+        if torch.is_tensor(size):
+            idx = torch.minimum(idx, size.clamp_min(1) - 1)
+        else:
+            idx = idx.clamp_max(max(size, 1) - 1)
         weight = self.tree.weights(
-            state.tree, idx, state.size, self.per.beta(n_opts),
+            state.tree, idx, size, self.per.beta(n_opts),
             self.per.normalize_all,
         )
         return idx, weight
@@ -271,7 +317,7 @@ class ReplayBuffer:
         ks = torch.arange(self.n_step, device=idx.device)  # [n]
         pk = (idx[:, None] + ks[None, :] * self.stride) % cap
         # steps-before-cursor of the base transition bounds the window
-        d = (state.cursor - 1 - idx) % cap
+        d = (count(state, "cursor") - 1 - idx) % cap
         valid = ks[None, :] * self.stride <= d[:, None]
         r_k = data.reward[pk]
         done_k = data.terminated[pk] | data.truncated[pk]
@@ -295,10 +341,11 @@ class ReplayBuffer:
         )
 
     def sample(self, state: ReplayBufferState, gen: torch.Generator,
-               batch_size: int, n_opts: Optional[int] = None) -> TransitionBatch:
+               batch_size: int, n_opts: Optional[Count] = None) -> TransitionBatch:
         if self.per is not None:
             return self.sample_at(
-                state, *self.draw_per(state, gen, batch_size, n_opts or 0))
+                state, *self.draw_per(state, gen, batch_size,
+                                   0 if n_opts is None else n_opts))
         return self.sample_at(state, self.draw(state, gen, batch_size))
 
     # -- priority feedback -------------------------------------------------

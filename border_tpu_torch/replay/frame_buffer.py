@@ -33,7 +33,10 @@ Differences from the JAX buffer:
   not an option;
 - ``total`` is a host int: it advances by one per push, so the write slot,
   the ``[lo, hi)`` draw range and the tree slots a push touches cost no
-  device→host sync;
+  device→host sync.  On a CUDA device the state also holds it as a device
+  tensor (:mod:`border_tpu_torch.utils.counters`), from which the card's
+  write slot, draw range, residency test and PER normalizer are computed,
+  so a CUDA graph of a push or a sample replays them;
 - every frame read of every mode goes through
   :func:`border_tpu_torch.ops.gather_frames`: the hand-written kernel on a
   CUDA ring, its plain version on a CPU one.  Union and slice mode launch
@@ -51,6 +54,12 @@ import torch
 from border_tpu_torch.ops.frame_gather import gather_frames
 from border_tpu_torch.replay.buffer import PerConfig, TransitionBatch
 from border_tpu_torch.replay.sum_tree import SumTree, SumTreeState
+from border_tpu_torch.utils.counters import (
+    Count,
+    count,
+    new_counts,
+    randint_below,
+)
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -66,6 +75,9 @@ class FrameReplayState:
     age: torch.Tensor  # [N, cap] int32 — step index within the episode
     total: int  # absolute steps pushed per env
     tree: Optional[SumTreeState] = None  # PER over (env × slot) leaves
+    counts: Optional[torch.Tensor] = None  # (total,) on a CUDA device
+
+    COUNTERS = ("total",)
 
 
 class FrameReplayBuffer:
@@ -208,6 +220,7 @@ class FrameReplayBuffer:
             age=z(torch.int32, cap),
             total=0,
             tree=self.tree.init() if self.tree is not None else None,
+            counts=new_counts(self.device, (0,)),
         )
 
     # -- ingest ------------------------------------------------------------
@@ -221,6 +234,8 @@ class FrameReplayBuffer:
         current frame); ts: Timestep; prev_ep_len: [N] steps already taken
         this episode (0 right after reset).
         """
+        if state.counts is not None:
+            return self._push_on_card(state, prev_obs, action, ts, prev_ep_len)
         p = state.total % self.capacity
         if self.tree is not None:
             self._tree_push(state, p)
@@ -236,7 +251,33 @@ class FrameReplayBuffer:
         state.total += 1
         return state
 
-    def _tree_push(self, state: FrameReplayState, p: int) -> None:
+    def _push_on_card(self, state: FrameReplayState, prev_obs, action, ts,
+                      prev_ep_len) -> FrameReplayState:
+        """:meth:`process_step` at the slot of the device count: the same
+        writes, as index copies.  The slice mode's mirror slot is slot
+        ``cap + p`` where ``p < pad``, else ``p`` again (the same frame
+        written twice)."""
+        total = state.counts[0]
+        p = (total % self.capacity).reshape(1)
+        if self.tree is not None:
+            self._tree_push(state, p[0])
+        frame = prev_obs[..., -1].unsqueeze(1)  # [N, 1, H, W]
+        if self.slot_pad:
+            mirror = torch.where(p < self.slot_pad, p + self.capacity, p)
+            state.frames.index_copy_(1, torch.cat([p, mirror]),
+                                     frame.expand(-1, 2, -1, -1))
+        else:
+            state.frames.index_copy_(1, p, frame)
+        for column, value in ((state.act, action), (state.reward, ts.reward),
+                              (state.terminated, ts.terminated),
+                              (state.truncated, ts.truncated),
+                              (state.age, prev_ep_len)):
+            column.index_copy_(1, p, value.to(column.dtype)[:, None])
+        state.total += 1
+        total.add_(1)
+        return state
+
+    def _tree_push(self, state: FrameReplayState, p: Count) -> None:
         """Per-push PER residency maintenance, one batched tree update:
 
         - zero slots ``p .. p+stack−1`` for every env: ``p`` holds the new
@@ -247,8 +288,13 @@ class FrameReplayBuffer:
           of the run stay out, matching the uniform draw range.
         """
         slots = (self._push_offsets + p) % self.capacity  # [stack + 1]
-        enters = state.total - self.n_step >= self.stack  # host ints
-        prio = self._push_enters * (state.tree.max_priority if enters else 0.0)
+        # host ints on the CPU, device scalars on the card
+        enters = count(state, "total") - self.n_step >= self.stack
+        if torch.is_tensor(enters):
+            prio = self._push_enters * torch.where(
+                enters, state.tree.max_priority, 0.0)
+        else:
+            prio = self._push_enters * (state.tree.max_priority if enters else 0.0)
         n = self.num_envs
         self.tree.update(
             state.tree,
@@ -262,10 +308,29 @@ class FrameReplayBuffer:
         size = min(state.total, self.capacity)
         return max(size - self.stack - self.n_step, 0) * self.num_envs
 
-    def _draw_range(self, state: FrameReplayState) -> Tuple[int, int]:
-        size = min(state.total, self.capacity)
-        lo = state.total - size + self.stack
-        return lo, max(state.total - self.n_step, lo + 1)
+    def _draw_range(self, state: FrameReplayState) -> Tuple[Count, Count]:
+        """``[lo, hi)``: host ints on the CPU, device scalars on the card."""
+        total = count(state, "total")
+        if torch.is_tensor(total):
+            lo = total - total.clamp_max(self.capacity) + self.stack
+            return lo, torch.maximum(total - self.n_step, lo + 1)
+        size = min(total, self.capacity)
+        lo = total - size + self.stack
+        return lo, max(total - self.n_step, lo + 1)
+
+    def _fill_count(self, state: FrameReplayState) -> Count:
+        """:meth:`fill` of the device count on the card."""
+        total = count(state, "total")
+        if not torch.is_tensor(total):
+            return self.fill(state)
+        size = total.clamp_max(self.capacity)
+        return (size - self.stack - self.n_step).clamp_min(0) * self.num_envs
+
+    def _randint(self, lo: Count, hi: Count, n: int, gen) -> torch.Tensor:
+        """``n`` steps uniform over ``[lo, hi)``."""
+        if torch.is_tensor(lo):
+            return lo + randint_below(hi - lo, (n,), gen)
+        return torch.randint(lo, hi, (n,), generator=gen, device=self.device)
 
     # -- sampling ----------------------------------------------------------
     def _gather_rows(self, state: FrameReplayState, e: torch.Tensor,
@@ -332,13 +397,12 @@ class FrameReplayBuffer:
                     f"slice_group ({g}) must divide batch_size ({batch_size})")
             e0 = g * torch.randint(0, self.num_envs // g, (batch_size // g,),
                                    generator=gen, device=dev)
-            s_g = torch.randint(lo, hi, (batch_size // g,), generator=gen,
-                                device=dev)
+            s_g = self._randint(lo, hi, batch_size // g, gen)
             e = (e0[:, None] + torch.arange(g, device=dev)[None, :]).reshape(-1)
             return e, s_g.repeat_interleave(g)
         e = torch.randint(0, self.num_envs, (batch_size,), generator=gen,
                           device=dev)
-        s = torch.randint(lo, hi, (batch_size,), generator=gen, device=dev)
+        s = self._randint(lo, hi, batch_size, gen)
         if self.sort_samples:
             order = torch.argsort(e * self.capacity + s % self.capacity)
             e, s = e[order], s[order]
@@ -346,7 +410,7 @@ class FrameReplayBuffer:
 
     @torch.no_grad()
     def draw_per(self, state: FrameReplayState, gen: Optional[torch.Generator],
-                 batch_size: int, n_opts: int = 0,
+                 batch_size: int, n_opts: Count = 0,
                  u: Optional[torch.Tensor] = None):
         """Prioritized draw over the (env × slot) leaves: ``(e, s, weight)``.
         Residency is guaranteed by the zero-priority maintenance in
@@ -355,9 +419,10 @@ class FrameReplayBuffer:
         e = leaf // self.capacity
         p_leaf = leaf % self.capacity
         # most recent absolute step congruent to this slot
-        s = (state.total - 1) - ((state.total - 1 - p_leaf) % self.capacity)
+        total = count(state, "total")
+        s = (total - 1) - ((total - 1 - p_leaf) % self.capacity)
         weight = self.tree.weights(
-            state.tree, leaf, self.fill(state), self.per.beta(n_opts),
+            state.tree, leaf, self._fill_count(state), self.per.beta(n_opts),
             self.per.normalize_all,
         )
         return e, s, weight
@@ -413,10 +478,11 @@ class FrameReplayBuffer:
         )
 
     def sample(self, state: FrameReplayState, gen: torch.Generator,
-               batch_size: int, n_opts: Optional[int] = None) -> TransitionBatch:
+               batch_size: int, n_opts: Optional[Count] = None) -> TransitionBatch:
         if self.per is not None:
             return self.sample_at(
-                state, *self.draw_per(state, gen, batch_size, n_opts or 0))
+                state, *self.draw_per(state, gen, batch_size,
+                                   0 if n_opts is None else n_opts))
         return self.sample_at(state, *self.draw(state, gen, batch_size))
 
     @torch.no_grad()

@@ -35,12 +35,12 @@ or faulty:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from border_tpu_torch.envs.pixel import true_div
-
+from border_tpu_torch.utils.counters import Count
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -104,7 +104,9 @@ class SumTree:
         for par, left, right in zip(parents, lefts, rights):
             sum_t[par] = sum_t[left] + sum_t[right]
             min_t[par] = torch.minimum(min_t[left], min_t[right])
-        state.max_priority = torch.maximum(state.max_priority, priorities.max())
+        # in place: a captured graph reads this tensor's address
+        torch.maximum(state.max_priority, priorities.max(),
+                      out=state.max_priority)
         return state
 
     def total(self, state: SumTreeState) -> torch.Tensor:
@@ -143,17 +145,19 @@ class SumTree:
 
     @torch.no_grad()
     def weights(self, state: SumTreeState, indices: torch.Tensor,
-                n_valid: int, beta: float,
+                n_valid: Count, beta: Union[float, torch.Tensor],
                 normalize_all: bool = True) -> torch.Tensor:
         """Importance weights ``(N·P(i))^{-β}``, normalized by the max weight
         over All (via the min tree) or over the Batch
-        (≙ sum_tree.rs:116-156)."""
+        (≙ sum_tree.rs:116-156).  ``n_valid`` and ``beta`` are host numbers
+        on the CPU path and device scalars on the card's."""
         total = self.total(state).clamp_min(1e-12)
         p = state.sum_tree[indices.long() + self.capacity] / total
-        w = (float(n_valid) * p.clamp_min(1e-12)) ** (-beta)
+        n = n_valid.float() if torch.is_tensor(n_valid) else float(n_valid)
+        w = (n * p.clamp_min(1e-12)) ** (-beta)
         if normalize_all:
             p_min = self.min_priority(state).clamp_min(1e-12) / total
-            w_max = (float(n_valid) * p_min) ** (-beta)
+            w_max = (n * p_min) ** (-beta)
         else:
             w_max = w.max()
         return w / w_max.clamp_min(1e-12)

@@ -40,8 +40,10 @@ def _snapshot(module: nn.Module) -> nn.Module:
 
 
 class AsyncTrainer(Trainer):
-    """Alternates actor chunks (stale parameters) and learner chunks."""
+    """Alternates actor chunks (stale parameters) and learner chunks.  The
+    actor's state is made anew every chunk, so the chunk runs eagerly."""
 
+    graphable = False
     _actor_params: Optional[nn.Module] = None
     _last_sync: int = 0
 

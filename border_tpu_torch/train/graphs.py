@@ -1,0 +1,205 @@
+"""CUDA-graph replay of the trainers' loop bodies (≙ the JAX trainers'
+``jax.jit`` over ``lax.scan``).
+
+The JAX trainers compile a chunk's env steps and updates into one XLA
+program.  Here one loop body (an env step, an update) is captured into a
+CUDA graph and the graph is replayed once per iteration: a replay launches
+the body's kernels from the device's copy of the graph, with no Python and
+no per-operator host work.
+
+A body reads and writes tensors that keep their addresses: the agent's
+modules and optimizer, the replay ring and tree, the counters
+(:mod:`border_tpu_torch.utils.counters`) and metric sums are updated in
+place, and a functional result (the env's next state) is copied into the
+tensors the next iteration reads (:func:`copy_into`).  The generators the
+body draws from are registered with the graph, so every replay draws the
+values the eager body would draw next: the CUDA generator hands a replay
+the offset the eager launches would have had.  So a replayed iteration
+computes what the eager body computes, bit for bit, and the eager path on
+the card runs the same operations (the same capturable optimizer, the same
+device-count draws) for the tests to hold the two against each other.
+
+A :class:`LoopGraph` runs its body eagerly for its first ``warmup``
+iterations (on a side stream, as capture asks: lazy state such as the
+optimizer's moments and the kernels' libraries is made then), captures it
+on its next, and replays it from then on.  A capture that fails raises
+:class:`GraphCaptureError` naming the operator that broke it; nothing falls
+back to the eager body.  Each replay adds the kernel launches its capture
+recorded to the counted wrappers' ``launches``
+(:data:`border_tpu_torch.ops.COUNTED`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from border_tpu_torch.errors import BorderTpuError
+from border_tpu_torch.ops import COUNTED
+
+WARMUP = 3
+
+
+class GraphCaptureError(BorderTpuError, RuntimeError):
+    """A loop body could not be captured into a CUDA graph."""
+
+
+def _leaves(x: Any, path: str = ""):
+    """``(path, leaf)`` of a (nested) dataclass, dict or tensor."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            yield from _leaves(getattr(x, f.name), f"{path}.{f.name}")
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _leaves(v, f"{path}[{k!r}]")
+    else:
+        yield path, x
+
+
+def copy_into(dst: Any, src: Any) -> None:
+    """Every tensor of ``src`` copied into the tensor at its place in
+    ``dst`` (a nested dataclass or dict of the same structure), in one
+    ``_foreach_copy_``: a functional step's result written where the next
+    replay reads.  A leaf of another shape or dtype, or a differing
+    non-tensor leaf (which a graph would freeze), raises."""
+    dsts, srcs = [], []
+    for (path, d), (_, s) in zip(_leaves(dst), _leaves(src), strict=True):
+        if torch.is_tensor(d):
+            if d.shape != s.shape or d.dtype != s.dtype:
+                raise GraphCaptureError(
+                    f"state leaf {path} changes from {tuple(d.shape)} "
+                    f"{d.dtype} to {tuple(s.shape)} {s.dtype} in a step")
+            if d is not s:
+                dsts.append(d)
+                srcs.append(s)
+        elif d is not s and d != s:
+            raise GraphCaptureError(
+                f"state leaf {path} is a host value that changes in a step "
+                f"({d!r} to {s!r}); a graph would replay the first")
+    if dsts:
+        torch._foreach_copy_(dsts, srcs)
+
+
+def add_metrics_(sums: Dict[str, torch.Tensor], metrics: Dict[str, Any]) -> None:
+    """``metrics`` added into the device sums ``sums`` in place (made as
+    zeros at the first call).  A metric that is not a tensor would be
+    frozen into a graph: it raises."""
+    for k, v in metrics.items():
+        if not torch.is_tensor(v):
+            raise GraphCaptureError(
+                f"metric {k!r} is a host value ({v!r}); a graph would "
+                f"replay the value it saw at capture")
+        if k not in sums:
+            sums[k] = torch.zeros_like(v)
+        sums[k].add_(v)
+
+
+class _LastOp(TorchDispatchMode):
+    """Remembers the last operator dispatched (the one a capture failed
+    in, when it fails)."""
+
+    last = "no operator"
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.last = str(func)
+        return func(*args, **(kwargs or {}))
+
+
+def _where(exc: BaseException) -> str:
+    """The innermost frame of the port's own code in ``exc``'s traceback."""
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if "border_tpu_torch" in f.filename
+              and not f.filename.endswith("graphs.py")]
+    if not frames:
+        return "an unknown line"
+    f = frames[-1]
+    return f"{f.filename.rsplit('border_tpu_torch', 1)[-1]}:{f.lineno} ({f.line})"
+
+
+class LoopGraph:
+    """``step()`` run ``n`` times per :meth:`run`: eagerly for its first
+    ``warmup`` iterations over all calls, then captured once and replayed.
+
+    ``step`` takes no arguments and returns nothing: it updates tensors in
+    place that keep their addresses between iterations.  ``generators``:
+    every ``torch.Generator`` it draws from (each replay then draws anew).
+    ``objects``: what the body was built for; :meth:`bound_to` tells a
+    caller whether it may replay this graph for other objects."""
+
+    def __init__(self, name: str, step: Callable[[], None],
+                 generators: Sequence[torch.Generator],
+                 objects: Sequence[Any] = (), warmup: int = WARMUP):
+        self.name = name
+        self.step = step
+        self.generators = list(generators)
+        self.objects = list(objects)
+        self.warmup = warmup
+        self.eager_done = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.launches_each: List[tuple] = []
+        # the caller's fixed tensors the body writes: its device sums and,
+        # for a prefetching body, the batch it carries between iterations
+        self.sums: Any = None
+        self.held: Any = None
+
+    def bound_to(self, objects: Sequence[Any]) -> bool:
+        return len(objects) == len(self.objects) and all(
+            a is b for a, b in zip(objects, self.objects))
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self.stream is None:
+            self.stream = torch.cuda.Stream()
+        return self.stream
+
+    def run(self, n: int) -> None:
+        if self.graph is None:
+            w = min(n, self.warmup - self.eager_done)
+            if w > 0:
+                s = self._side_stream()
+                s.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(s):
+                    for _ in range(w):
+                        self.step()
+                torch.cuda.current_stream().wait_stream(s)
+                self.eager_done += w
+                n -= w
+            if n == 0:
+                return
+            self._capture()
+        for _ in range(n):
+            self.graph.replay()
+        for fn, k in self.launches_each:
+            fn.launches += k * n
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        before = [fn.captured for fn in COUNTED]
+        last = _LastOp()
+        try:
+            with torch.cuda.graph(graph, stream=self._side_stream()):
+                with last:
+                    self.step()
+        except GraphCaptureError:
+            raise
+        except Exception as e:  # noqa: BLE001 — re-raised with the operator
+            cause = e.__context__ if e.__context__ is not None else e
+            msg = (str(cause).strip() or type(cause).__name__).splitlines()[0]
+            if "legacy stream" in msg:
+                msg += (" (an autograd graph of the parameters made on the "
+                        "default stream is still alive: make such forwards "
+                        "under torch.no_grad())")
+            raise GraphCaptureError(
+                f"capturing the {self.name} into a CUDA graph failed at "
+                f"operator {last.last}, called from {_where(cause)}: {msg}"
+            ) from e
+        self.launches_each = [(fn, fn.captured - b)
+                              for fn, b in zip(COUNTED, before)
+                              if fn.captured != b]
+        self.graph = graph

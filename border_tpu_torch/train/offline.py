@@ -6,8 +6,10 @@ loop's cadences with every iteration a gradient step on a batch drawn from
 the buffer.  A chunk is ``updates_per_chunk`` updates, each a sample, an
 update and, when the agent returns TD errors, a priority update; the
 chunk's metrics are summed on the device and read in its one device→host
-sync.  Between chunks: record flushes, evaluation with best-model saves,
-``eval_callback``.
+sync.  On a CUDA device the update is captured into a CUDA graph and the
+chunk replays it (:mod:`border_tpu_torch.train.graphs`, as the Trainer's
+update loop; ``cuda_graphs=False`` runs it eagerly).  Between chunks: record
+flushes, evaluation with best-model saves, ``eval_callback``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,13 @@ from border_tpu_torch.record.recorder import NullRecorder, Recorder
 from border_tpu_torch.replay.buffer import ReplayBuffer
 from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
-from border_tpu_torch.train.trainer import TrainResult
+from border_tpu_torch.train.trainer import (
+    TrainResult,
+    graphed_updates,
+    resolve_cuda_graphs,
+    update_step,
+)
+from border_tpu_torch.utils.counters import sync_counters
 
 
 class OfflineTrainer:
@@ -36,8 +44,11 @@ class OfflineTrainer:
         evaluator: Optional[Evaluator] = None,
         updates_per_chunk: int = 100,
         eval_callback=None,
+        cuda_graphs: Optional[bool] = None,
     ):
-        """Runs on the buffer's device."""
+        """Runs on the buffer's device.  ``cuda_graphs`` as the Trainer's:
+        None graphs the chunk on a CUDA device, False runs it eagerly, True
+        on the CPU raises."""
         self.agent = agent
         self.buffer = buffer
         self.config = config
@@ -47,17 +58,23 @@ class OfflineTrainer:
         # called after every evaluation with (opt_steps, env_steps=0,
         # score, best_score), as Trainer.eval_callback
         self.eval_callback = eval_callback
+        self.cuda_graphs = resolve_cuda_graphs(
+            cuda_graphs, torch.device(buffer.device), owner="OfflineTrainer")
+        self._graphs = {}
 
     def _chunk(self, agent_state, buf_state, gen: torch.Generator):
         """``updates_per_chunk`` updates; the metrics' sums, on the device."""
+        if self.cuda_graphs:
+            sums = graphed_updates(
+                self._graphs, self.agent, self.buffer, agent_state, buf_state,
+                gen, self.config.batch_size, self.updates_per_chunk)
+            sync_counters(agent_state, buf_state)
+            return agent_state, buf_state, sums
         sums: Dict[str, Any] = {}
         for _ in range(self.updates_per_chunk):
-            batch = self.buffer.sample(buf_state, gen, self.config.batch_size,
-                                       n_opts=agent_state.n_opts)
-            agent_state, metrics, td_err = self.agent.update(agent_state, batch, gen)
-            if td_err is not None:
-                buf_state = self.buffer.update_priority(
-                    buf_state, batch.ix_sample, td_err)
+            agent_state, buf_state, metrics = update_step(
+                self.agent, self.buffer, agent_state, buf_state, gen,
+                self.config.batch_size)
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
         return agent_state, buf_state, sums
@@ -69,6 +86,7 @@ class OfflineTrainer:
         c = self.config
         seed = c.seed if seed is None else seed
         gen = torch.Generator(device=self.buffer.device).manual_seed(seed)
+        self._graphs = {}  # graphs of an earlier call hold other states
         opt_steps = 0
         best_score = -float("inf")
         eval_history: List[Tuple[int, float]] = []

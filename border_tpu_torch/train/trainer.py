@@ -7,11 +7,15 @@ Each chunk runs
 
 with ``M = K·num_envs/opt_interval · n_updates_per_opt``, the reference's
 update:sample ratio.  The JAX trainer compiles a chunk into one XLA program
-of two ``lax.scan``s; here the two are Python loops over eager PyTorch ops
-that queue on the card without waiting for it.  The env-step counters,
-the write cursor, the draw range and the update count are host ints that
-advance by fixed amounts, and the chunk's metrics are summed on the device,
-so a chunk costs one device→host sync, at its end.
+of two ``lax.scan``s.  Here, on a CUDA device, one env step and one update
+are each captured into a CUDA graph and replayed K and M times
+(:mod:`border_tpu_torch.train.graphs`); ``cuda_graphs=False`` runs the same
+operations eagerly, as Python loops that queue on the card without waiting
+for it, and the CPU path is always eager.  The counters (env steps, write
+cursor, draw range, update count) advance on the device on the card and as
+host ints on the CPU, and the chunk's metrics are summed on the device, so
+a chunk costs one device→host sync, at its end: on the card it also brings
+the host mirrors of the counters up to date.
 
 The Python shell around the chunks handles the cadences: warmup on buffer
 fill, periodic evaluation with best-model selection, model saves, record
@@ -36,6 +40,8 @@ from border_tpu_torch.record.recorder import NullRecorder, Recorder
 from border_tpu_torch.replay.buffer import ReplayBuffer, Transition, map_obs
 from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
+from border_tpu_torch.train.graphs import LoopGraph, add_metrics_, copy_into
+from border_tpu_torch.utils.counters import count, sync_counters
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -63,9 +69,36 @@ def _slice_batch(batch, lo: int, hi: int):
     })
 
 
+def resolve_cuda_graphs(cuda_graphs: Optional[bool], device: torch.device,
+                        graphable: bool = True, owner: str = "Trainer") -> bool:
+    """The ``cuda_graphs`` switch of a trainer on ``device``: None means on
+    a CUDA device; True raises on the CPU and for a trainer whose chunk is
+    not graphable (``graphable``), which then runs eagerly."""
+    if cuda_graphs and device.type != "cuda":
+        raise ConfigError(f"cuda_graphs=True needs a CUDA device, not {device}")
+    if cuda_graphs and not graphable:
+        raise ConfigError(f"{owner} runs its chunk eagerly: cuda_graphs=True "
+                          f"is not available")
+    if cuda_graphs is None:
+        return graphable and device.type == "cuda"
+    return bool(cuda_graphs)
+
+
 def _add_metrics(sums: Dict[str, Any], metrics: Dict[str, Any]) -> None:
     for k, v in metrics.items():
         sums[k] = sums[k] + v if k in sums else v
+
+
+def update_step(agent: Agent, buffer, agent_state, buf_state,
+                gen: torch.Generator, batch_size: int):
+    """One update of the sequential loop: sample, update, priority
+    feedback.  Returns the states and the update's metrics."""
+    batch = buffer.sample(buf_state, gen, batch_size,
+                          n_opts=count(agent_state, "n_opts"))
+    agent_state, metrics, td_err = agent.update(agent_state, batch, gen)
+    if td_err is not None:
+        buf_state = buffer.update_priority(buf_state, batch.ix_sample, td_err)
+    return agent_state, buf_state, metrics
 
 
 def update_burst(agent: Agent, buffer, agent_state, buf_state,
@@ -75,12 +108,45 @@ def update_burst(agent: Agent, buffer, agent_state, buf_state,
     and the metrics' means over the burst, tensors still on the device."""
     sums: Dict[str, Any] = {}
     for _ in range(m):
-        batch = buffer.sample(buf_state, gen, batch_size, n_opts=agent_state.n_opts)
-        agent_state, metrics, td_err = agent.update(agent_state, batch, gen)
+        agent_state, buf_state, metrics = update_step(
+            agent, buffer, agent_state, buf_state, gen, batch_size)
         _add_metrics(sums, metrics)
-        if td_err is not None:
-            buf_state = buffer.update_priority(buf_state, batch.ix_sample, td_err)
     return agent_state, buf_state, {k: v / m for k, v in sums.items()}
+
+
+def graphed_updates(graphs: Dict[str, LoopGraph], agent: Agent, buffer,
+                    agent_state, buf_state, gen: torch.Generator,
+                    batch_size: int, m: int) -> Dict[str, torch.Tensor]:
+    """:func:`update_burst`'s ``m`` updates as replays of one captured
+    update (``graphs["update"]``, made here or reused while the same states
+    and generator come back).  Returns the metrics' sums on the device."""
+    loop = graphs.get("update")
+    objects = (agent_state, buf_state, gen)
+    if loop is None or not loop.bound_to(objects):
+        sums: Dict[str, torch.Tensor] = {}
+
+        def step():
+            st, bs, metrics = update_step(agent, buffer, agent_state,
+                                          buf_state, gen, batch_size)
+            _same_states(st, agent_state, bs, buf_state)
+            add_metrics_(sums, metrics)
+
+        loop = graphs["update"] = LoopGraph("update", step, [gen], objects)
+        loop.sums = sums
+    for v in loop.sums.values():
+        v.zero_()
+    loop.run(m)
+    # copies: the next chunk's replays write the sums again
+    return {k: v.clone() for k, v in loop.sums.items()}
+
+
+def _same_states(agent_state, want_agent, buf_state, want_buf) -> None:
+    """A graphed body's states must be updated in place: a step that
+    returns new state objects would leave the graph writing the old."""
+    if agent_state is not want_agent or buf_state is not want_buf:
+        raise ConfigError(
+            "a graphed loop body returned new state objects; the agent and "
+            "the buffer must update their states in place")
 
 
 def metrics_to_host(metrics: Dict[str, Any], *scalars: torch.Tensor):
@@ -145,7 +211,11 @@ class Trainer:
         checkpoint_interval: int = 0,
         eval_callback=None,
         device: DeviceLike = None,
+        cuda_graphs: Optional[bool] = None,
     ):
+        """``cuda_graphs``: run the chunk's env steps and updates as replays
+        of captured CUDA graphs.  None: on a CUDA device, not on the CPU;
+        False: the eager chunk, also on the card; True on the CPU raises."""
         c = config
         self.env = env
         self.agent = agent
@@ -166,6 +236,9 @@ class Trainer:
                 f"buffer on {buffer.device}, trainer on {self.device}"
             )
         self.vec = VecEnv(env, c.num_envs, device=self.device)
+        self.cuda_graphs = resolve_cuda_graphs(
+            cuda_graphs, self.device, self.graphable, type(self).__name__)
+        self._graphs: Dict[str, LoopGraph] = {}
 
         transitions_per_chunk = c.steps_per_chunk * c.num_envs
         self.updates_per_chunk = max(
@@ -175,6 +248,10 @@ class Trainer:
         self._check_nstep_stride(buffer, self._nstep_expected_stride())
         self._check_nstep_clip(agent, buffer)
         self._check_nstep_gamma(agent, buffer)
+
+    # subclasses whose chunk is not one program per device (collectives,
+    # actor states made per chunk) set this False: they run eagerly
+    graphable = True
 
     def _nstep_expected_stride(self) -> int:
         """The envs pushed into one buffer per vec step (ShardedTrainer:
@@ -250,27 +327,65 @@ class Trainer:
     # ------------------------------------------------------------------
     # chunk
     # ------------------------------------------------------------------
+    def _env_step(self, agent_state, vec_state, buf_state,
+                  gen: torch.Generator, explore: bool, ep_ret, ep_cnt):
+        """One env step: act → step → push, the finished episodes' returns
+        and count added into ``ep_ret``/``ep_cnt`` in place."""
+        if explore:
+            action = self.agent.select_action(agent_state, vec_state.obs, gen)
+        else:
+            action = self.agent.select_action_eval(agent_state, vec_state.obs, gen)
+        prev_obs = vec_state.obs
+        prev_ep_len = vec_state.episode_length
+        ts, vec_state = self.vec.step(vec_state, action)
+        buf_state = self.buffer.process_step(
+            buf_state, prev_obs, action, ts, prev_ep_len
+        )
+        agent_state = self.agent.on_env_step(agent_state, self.config.num_envs)
+        done_f = ts.done.float()
+        ep_ret += (done_f * vec_state.last_return).sum()
+        ep_cnt += done_f.sum()
+        return agent_state, vec_state, buf_state
+
     def _env_scan(self, agent_state, vec_state, buf_state,
                   gen: torch.Generator, explore: bool):
         """K env steps: act → step → push.  Returns the states and the
         device sums of the finished episodes' returns and of their count."""
+        if self.cuda_graphs:
+            return self._env_scan_graphed(agent_state, vec_state, buf_state,
+                                          gen, explore)
         ep_ret = torch.zeros((), device=self.device)
         ep_cnt = torch.zeros((), device=self.device)
         for _ in range(self.config.steps_per_chunk):
-            if explore:
-                action = self.agent.select_action(agent_state, vec_state.obs, gen)
-            else:
-                action = self.agent.select_action_eval(agent_state, vec_state.obs, gen)
-            prev_obs = vec_state.obs
-            prev_ep_len = vec_state.episode_length
-            ts, vec_state = self.vec.step(vec_state, action)
-            buf_state = self.buffer.process_step(
-                buf_state, prev_obs, action, ts, prev_ep_len
-            )
-            agent_state = self.agent.on_env_step(agent_state, self.config.num_envs)
-            done_f = ts.done.float()
-            ep_ret += (done_f * vec_state.last_return).sum()
-            ep_cnt += done_f.sum()
+            agent_state, vec_state, buf_state = self._env_step(
+                agent_state, vec_state, buf_state, gen, explore, ep_ret, ep_cnt)
+        return agent_state, vec_state, buf_state, ep_ret, ep_cnt
+
+    def _env_scan_graphed(self, agent_state, vec_state, buf_state,
+                          gen: torch.Generator, explore: bool):
+        """:meth:`_env_scan` as K replays of one captured env step, whose
+        next env state is copied into ``vec_state``'s tensors.  Returns the
+        same state objects."""
+        name = f"env step ({'explore' if explore else 'greedy'})"
+        objects = (agent_state, vec_state, buf_state, gen)
+        loop = self._graphs.get(name)
+        if loop is None or not loop.bound_to(objects):
+            sums = (torch.zeros((), device=self.device),
+                    torch.zeros((), device=self.device))
+
+            def step():
+                st, new_vec, bs = self._env_step(agent_state, vec_state,
+                                                 buf_state, gen, explore, *sums)
+                _same_states(st, agent_state, bs, buf_state)
+                copy_into(vec_state, new_vec)
+
+            loop = self._graphs[name] = LoopGraph(
+                name, step, [gen, vec_state.gen], objects)
+            loop.sums = sums
+        for v in loop.sums:
+            v.zero_()
+        loop.run(self.config.steps_per_chunk)
+        ep_ret, ep_cnt = (v.clone() for v in loop.sums)
         return agent_state, vec_state, buf_state, ep_ret, ep_cnt
 
     def _update_scan(self, agent_state, buf_state, gen: torch.Generator):
@@ -289,6 +404,9 @@ class Trainer:
         B, M = c.batch_size, self.updates_per_chunk
         uniform = self.buffer.per is None
         ups = c.updates_per_sample_batch if uniform else 1
+        if self.cuda_graphs:
+            return self._update_scan_graphed(agent_state, buf_state, gen, ups,
+                                             uniform and c.prefetch_sample)
         if ups == 1 and not (uniform and c.prefetch_sample):
             return update_burst(self.agent, self.buffer, agent_state,
                                 buf_state, gen, B, M)
@@ -296,7 +414,7 @@ class Trainer:
 
         def sample(n):
             return self.buffer.sample(buf_state, gen, n,
-                                      n_opts=agent_state.n_opts)
+                                      n_opts=count(agent_state, "n_opts"))
 
         def update(batch):
             state, metrics, _ = self.agent.update(agent_state, batch, gen)
@@ -317,6 +435,55 @@ class Trainer:
         means = {k: v / M for k, v in sums.items()}
         return agent_state, buf_state, means
 
+    def _update_scan_graphed(self, agent_state, buf_state,
+                             gen: torch.Generator, ups: int, prefetch: bool):
+        """:meth:`_update_scan` as replays of one captured body: an update
+        (the sequential order), a sample of ``B·ups`` and its ``ups``
+        updates, or a prefetched update (the batch the previous replay drew
+        is read from fixed tensors, which the chunk's first sample fills).
+        The same draws in the same order as the eager loops."""
+        B, M = self.config.batch_size, self.updates_per_chunk
+        if ups == 1 and not prefetch:
+            sums = graphed_updates(self._graphs, self.agent, self.buffer,
+                                   agent_state, buf_state, gen, B, M)
+            return agent_state, buf_state, {k: v / M for k, v in sums.items()}
+        agent, objects = self.agent, (agent_state, buf_state, gen)
+
+        def sample(n):
+            return self.buffer.sample(buf_state, gen, n,
+                                      n_opts=count(agent_state, "n_opts"))
+
+        def update(batch, sums):
+            st, metrics, _ = agent.update(agent_state, batch, gen)
+            _same_states(st, agent_state, buf_state, buf_state)
+            add_metrics_(sums, metrics)
+
+        name = "prefetched update" if ups == 1 else "sample-batch updates"
+        loop = self._graphs.get(name)
+        head = sample(B) if ups == 1 else None
+        if loop is None or not loop.bound_to(objects):
+            sums: Dict[str, torch.Tensor] = {}
+            held = head  # the batch the next replay updates on
+
+            def step():
+                if ups == 1:
+                    nxt = sample(B)
+                    update(held, sums)
+                    copy_into(held, nxt)
+                else:
+                    big = sample(B * ups)
+                    for i in range(ups):
+                        update(_slice_batch(big, i * B, (i + 1) * B), sums)
+
+            loop = self._graphs[name] = LoopGraph(name, step, [gen], objects)
+            loop.sums, loop.held = sums, held
+        elif ups == 1:
+            copy_into(loop.held, head)
+        for v in loop.sums.values():
+            v.zero_()
+        loop.run(M // ups)
+        return agent_state, buf_state, {k: v / M for k, v in loop.sums.items()}
+
     def _chunk(self, agent_state, vec_state, buf_state, gen: torch.Generator,
                do_update: bool, do_env: bool = True):
         if do_env:
@@ -330,6 +497,8 @@ class Trainer:
             agent_state, buf_state, metrics = self._update_scan(
                 agent_state, buf_state, gen
             )
+        if self.cuda_graphs:  # the host mirrors of the replayed counters
+            sync_counters(agent_state, buf_state)
         return agent_state, vec_state, buf_state, metrics, ep_ret, ep_cnt
 
     def _dispatch(self, agent_state, vec_state, buffer_state,
@@ -401,6 +570,7 @@ class Trainer:
         """
         c = self.config
         seed = c.seed if seed is None else seed
+        self._graphs = {}  # graphs of an earlier call hold other states
         init_agent, vec_state, init_buffer = self.init_states(seed, seed + 1)
         if agent_state is None:
             agent_state = init_agent

@@ -64,6 +64,12 @@ def unpack_state(template: Any, saved: Any, device: DeviceLike = "cpu") -> Any:
     the template's device and in its dtype.  A tensor the template has no
     place for goes to ``device``."""
     if dataclasses.is_dataclass(template) and not isinstance(template, type):
+        if (getattr(template, "counts", None) is not None
+                and saved.get("counts") is None):
+            # saved where the state holds no device counters (the CPU): they
+            # are its host ints (border_tpu_torch.utils.counters)
+            saved = {**saved, "counts": torch.tensor(
+                [saved[n] for n in type(template).COUNTERS])}
         return type(template)(**{
             f.name: unpack_state(getattr(template, f.name), saved.get(f.name),
                                  device)

@@ -34,11 +34,20 @@ Phases, one line each (any failure exits non-zero with no result line):
    to 1e-6 relative, the same totals and weights;
 6. the uniform path: Trainer.train() on Pong at the bench.py config (1024
    envs, 32 steps a chunk, batch 512, 8 gradient samples per transition,
-   bf16 AtariCNN), until two update chunks of 512 updates have run;
-   the gather's launch count must equal the number of updates;
-7. where a chunk's time goes: its env and update phases timed apart in
-   this run, and a few env steps and updates traced with torch.profiler
-   (device busy time, idle share, launches, the kernels that take most);
+   bf16 AtariCNN), until two update chunks of 512 updates have run, the
+   chunk's env steps and updates as replays of captured CUDA graphs; the
+   gather's launch count (one a replay) must equal the number of updates;
+   then the same run with the eager chunk (cuda_graphs=False), which must
+   end bitwise equal (agent state, replay state, every chunk's loss);
+7. where a chunk's time goes, for the graphed chunk and the eager one in
+   turns (graphed, eager, eager, graphed): their env and update phases
+   timed apart in this run, the graphed phases' device time with CUDA
+   events while the host has queued them ahead of the card, and a few env
+   steps and updates of each traced with torch.profiler (device busy time,
+   idle share, launches, host operator calls, the kernels that take
+   most); the graphed chunk must make fewer host operator calls an env
+   step and an update than the eager one.  Every path's phase 7 below
+   does the same, and each offline phase times a chunk of both;
 8. the prioritized path at the pong_per gate config's width (1024 envs,
    batch 512, a 1024 × 512-frame ring of 3.70 GB, a sum tree of 2^19
    leaves) with an Evaluator (10 episodes, 200 steps) and a full-state
@@ -66,9 +75,9 @@ Phases, one line each (any failure exits non-zero with no result line):
     bench.py's fused config (4096 envs, 64 steps a chunk, batch 512, 1024
     updates a chunk): one warmup chunk and one update chunk (two before
     phases 23-25 were added), then phase 7;
-13. the cartpole learning-gate config (128 envs, n-step 3, an evaluation
-    of 20 episodes every 500 updates), one seed, cut to 6,000 of its 12,000
-    updates: the run fails under a best evaluation score of 100;
+13. the whole cartpole learning-gate config (128 envs, n-step 3, an
+    evaluation of 20 episodes every 500 updates, 12,000 updates), one
+    seed: the run fails under a best evaluation score of 100;
 14. SAC on Pendulum at the pendulum gate config's width (128 envs, 256
     updates a chunk, batch 128, actor and two critics 128x128, auto
     entropy coefficient): one warmup chunk, two update chunks and one
@@ -83,7 +92,8 @@ Phases, one line each (any failure exits non-zero with no result line):
     same corpus, cut to 1,000 updates with their first evaluation moved
     there (the gate's is at 2,000, where these phases stopped before
     phases 23-25 were added).
-    Each offline phase ends with one chunk of 250 updates timed and 32
+    Each offline phase ends with chunks of 250 updates of the graphed
+    OfflineTrainer and its eager twin timed in turns and 32 updates of each
     traced;
 18. the pong_host config through HostEnvTrainer at its width (256 C++
     envpool Pong envs, batch 512, a 256 x 1024-frame ring, 4 updates an
@@ -134,8 +144,9 @@ Phases, one line each (any failure exits non-zero with no result line):
     a world of one rank over NCCL (a FileStore in a temporary directory) at
     the uniform path's config, one env chunk and one update chunk of 512
     updates from the plain Trainer's states and generator state: agent
-    state, ring and loss must equal the plain Trainer's bitwise; then one
-    chunk of ShardedAsyncTrainer; (b) two ranks of this script on the one
+    state, ring and loss must equal the plain Trainer's (whose chunk is
+    graphed; the sharded one is eager) bitwise; the sharded update chunk
+    timed once more; then one chunk of ShardedAsyncTrainer; (b) two ranks of this script on the one
     card over gloo (NCCL takes one rank per GPU), the same global config
     (512 envs and batch 256 a rank): one env chunk and 512 updates, the
     parameters bitwise equal across the ranks, the loss finite, the gather
@@ -188,9 +199,6 @@ CART_GATE = dict(max_opts=12_000, warmup_period=1_000, opt_interval=16,
                  batch_size=256, num_envs=128, steps_per_chunk=32,
                  eval_interval=500)
 CART_GATE_TARGET, CART_MIN_SCORE = 200.0, 100.0
-# the run is cut to CART_CUT of the gate's 12,000 updates to keep the script
-# within its time; seed 0 on the card first passes 100 at 5,120 updates
-CART_CUT = 6_000
 EVAL_KEYS = {"Episode return", "Episode return min", "Episode return max",
              "Episode length", "Episodes truncated"}
 # the pendulum learning-gate config (SAC, Gaussian actor, two critics):
@@ -256,7 +264,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def main() -> None:
+def main(only=None) -> None:
+    """``only``: phase numbers to run after phases 1-5 (a partial run, for
+    working on a phase; it prints no result line)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -403,17 +413,21 @@ def main() -> None:
 
     phase_s = {}
 
-    def timed(label, fn, *args, **kw):
+    def timed(label, fn, *args, skipped=0, **kw):
+        if only is not None and label.split()[0] not in only:
+            return skipped
         t = time.perf_counter()
         out = fn(*args, **kw)
         phase_s[label] = round(time.perf_counter() - t, 2)
         return out
 
     # -- 6. the uniform path --------------------------------------------------
-    launches, tr, r = timed("6 uniform", main_path, torch, dev)
+    launches, tr, r = timed("6 uniform", main_path, torch, dev,
+                            skipped=(0, None, None))
 
     # -- 7. where a chunk's time goes ----------------------------------------
-    timed("7 uniform breakdown", breakdown, torch, tr, r, "uniform")
+    if tr is not None:
+        timed("7 uniform breakdown", breakdown, torch, tr, r, "uniform")
     del tr, r
     torch.cuda.empty_cache()
 
@@ -463,7 +477,7 @@ def main() -> None:
         "name": "frame_gather",
         "route": "cuda",
         "source": "border_tpu_torch/csrc/frame_gather.cu",
-        "replaces": "border_tpu/ops/frame_gather.py:71",
+        "replaces": "border_tpu/ops/frame_gather.py:72",
         "launches": launches,
         "match": True,
         "max_abs_err": max_abs_err,
@@ -480,6 +494,10 @@ def main() -> None:
                       ("ms", "plain_ms", "bound_ms", "library_ms")},
     }]
     print("phase seconds: " + json.dumps(phase_s), flush=True)
+    if only is not None:
+        print(f"partial run of phases 1-5 and {sorted(only)} passed in "
+              f"{time.perf_counter() - t_start:.1f} s; no result line", flush=True)
+        return
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -818,6 +836,8 @@ def main_path(torch, dev):
     tr = Trainer(env, agent, buf, cfg, recorder=rec)
     if tr.updates_per_chunk != updates_per_chunk:
         fail(f"updates_per_chunk {tr.updates_per_chunk} != {updates_per_chunk}")
+    if not tr.cuda_graphs:
+        fail("the Trainer on the card does not run its chunk as CUDA graphs")
     # train() draws its initial parameters from seed 0 on the CPU, as here
     before = [p.detach().clone() for p in agent.init(
         0, tr.vec.observation_space, tr.vec.action_space).params.parameters()]
@@ -845,9 +865,26 @@ def main_path(torch, dev):
     if r.buffer_state.total != (UPDATE_CHUNKS + 1) * STEPS_PER_CHUNK:
         fail(f"buffer holds {r.buffer_state.total} pushes")
     obs = r.buffer_state.frames[:4, 0, :, :, None].expand(-1, -1, -1, 4)
-    q = r.agent_state.params(obs)
+    with torch.no_grad():  # no autograd graph left holding the parameters
+        q = r.agent_state.params(obs)
     if q.shape != (4, 6) or not torch.isfinite(q).all():
         fail(f"Q values of shape {tuple(q.shape)} not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the same run with the eager chunk: the same states, bitwise
+    rec_e = _chunk_recorder()
+    tr_e = Trainer(env, agent, buf, cfg, recorder=rec_e, cuda_graphs=False)
+    frame_gather.gather_frames.launches = 0
+    r_e = tr_e.train(seed=0)
+    torch.cuda.synchronize()
+    launches_e = frame_gather.gather_frames.launches
+    chunks_e = [c for c in rec_e.chunks if "opt_steps_per_sec" in c]
+    diff = _state_diff(torch, {"agent": r.agent_state, "replay": r.buffer_state},
+                       {"agent": r_e.agent_state, "replay": r_e.buffer_state})
+    if diff or [c["loss"] for c in chunks_e] != losses or launches_e != launches:
+        fail(f"the graphed and the eager runs differ: {diff[:8]}, losses "
+             f"{losses} vs {[c['loss'] for c in chunks_e]}, launches "
+             f"{launches} vs {launches_e}")
 
     # per update chunk (32 env steps, then 512 updates): env-steps/s and
     # updates/s over the chunk's wall time, which ends in a device sync
@@ -859,15 +896,22 @@ def main_path(torch, dev):
         "final_loss": losses[-1],
         "env_steps_per_s_chunks": eps, "updates_per_s_chunks": ups,
         "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "eager_env_steps_per_s_chunks": [c["samples_per_sec"] for c in chunks_e],
+        "eager_updates_per_s_chunks": [c["opt_steps_per_sec"] for c in chunks_e],
+        "eager_warmup_chunk_env_steps_per_s": rec_e.chunks[0]["samples_per_sec"],
+        "graphed_equals_eager_bitwise": True,
+        "max_memory_allocated_gb": peak_gb,
     }
     print(f"uniform path: Trainer.train() Pong, {NUM_ENVS} envs, batch {BATCH}, "
-          f"{r.opt_steps} updates in {UPDATE_CHUNKS} update chunks; "
-          f"env-steps/s {eps[-1]:.1f}, updates/s {ups[-1]:.2f} (last chunk); "
+          f"{r.opt_steps} updates in {UPDATE_CHUNKS} update chunks, the chunk "
+          f"as CUDA-graph replays; env-steps/s {eps[-1]:.1f}, updates/s "
+          f"{ups[-1]:.2f} (last chunk; eager chunk "
+          f"{chunks_e[-1]['samples_per_sec']:.1f} and "
+          f"{chunks_e[-1]['opt_steps_per_sec']:.2f}, the same states bitwise); "
           f"final loss {losses[-1]:.6g}; frame_gather launches {launches} "
           f"= updates {r.opt_steps}", flush=True)
     print("uniform path numbers: " + json.dumps(result), flush=True)
-    return launches, tr, r
+    return launches + launches_e, tr, r
 
 
 def _packed_leaves(tree, prefix=""):
@@ -1263,7 +1307,8 @@ def seaquest_path(torch, dev) -> int:
     # quantile values of the expected shape, finite
     obs = r.buffer_state.frames[:4, 0, :, :, None].expand(-1, -1, -1, 4)
     taus = torch.rand((4, 8), device=dev)
-    z = r.agent_state.params(obs, taus)
+    with torch.no_grad():  # no autograd graph left holding the parameters
+        z = r.agent_state.params(obs, taus)
     if z.shape != (4, 8, 6) or not torch.isfinite(z).all():
         fail(f"seaquest-iqn: quantile values of shape {tuple(z.shape)}")
     result.update(eval_score=score, eval_record=dict(evals[0].items()),
@@ -1331,7 +1376,8 @@ def cartpole_fused_path(torch, dev) -> None:
             % CART_CAPACITY and st.data.obs.is_cuda
             and tuple(st.data.obs.shape) == (CART_CAPACITY, 4)):
         fail(f"cartpole-fused: buffer size {st.size}, cursor {st.cursor}")
-    q = r.agent_state.params(st.data.obs[:8])
+    with torch.no_grad():  # no autograd graph left holding the parameters
+        q = r.agent_state.params(st.data.obs[:8])
     if q.shape != (8, 2) or not torch.isfinite(q).all():
         fail(f"cartpole-fused: Q values of shape {tuple(q.shape)}")
     result = {
@@ -1350,8 +1396,7 @@ def cartpole_fused_path(torch, dev) -> None:
 
 
 def cartpole_learns(torch, dev) -> None:
-    """Phase 13: the cartpole learning-gate config on one seed, cut to
-    CART_CUT updates."""
+    """Phase 13: the cartpole learning-gate config on one seed, whole."""
     from border_tpu_torch.agents import DQN, DQNConfig
     from border_tpu_torch.envs import make
     from border_tpu_torch.replay import ReplayBuffer
@@ -1361,7 +1406,7 @@ def cartpole_learns(torch, dev) -> None:
     agent = DQN(DQNConfig(hidden=(64, 64), lr=5e-4, gamma=0.99, tau=1.0,
                           soft_update_interval=500, double_dqn=True,
                           eps_final_step=10_000))
-    cfg = TrainerConfig(seed=0, **{**CART_GATE, "max_opts": CART_CUT})
+    cfg = TrainerConfig(seed=0, **CART_GATE)
     buffer = ReplayBuffer(capacity=CART_CAPACITY, n_step=3,
                           stride=CART_GATE["num_envs"])
     evaluator = Evaluator(env, n_episodes=20, max_steps=500)
@@ -1371,8 +1416,8 @@ def cartpole_learns(torch, dev) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     scores = [s for _, s in r.eval_history]
-    n_evals = CART_CUT // CART_GATE["eval_interval"]
-    if r.opt_steps < CART_CUT or len(scores) < n_evals or not all(
+    n_evals = CART_GATE["max_opts"] // CART_GATE["eval_interval"]
+    if r.opt_steps < CART_GATE["max_opts"] or len(scores) < n_evals or not all(
             map(math.isfinite, scores)):
         fail(f"cartpole learns: {r.opt_steps} updates, evaluations {r.eval_history}")
     result = {
@@ -1382,8 +1427,8 @@ def cartpole_learns(torch, dev) -> None:
         "first_score": scores[0], "gate_target": CART_GATE_TARGET,
         "met_gate_target": r.best_score >= CART_GATE_TARGET,
     }
-    print(f"cartpole learns: the cartpole gate config cut to {CART_CUT} of its "
-          f"{CART_GATE['max_opts']} updates, seed 0, {r.opt_steps} "
+    print(f"cartpole learns: the whole cartpole gate config "
+          f"({CART_GATE['max_opts']} updates), seed 0, {r.opt_steps} "
           f"updates and {len(scores)} evaluations of 20 episodes in "
           f"{seconds:.1f} s; best score {r.best_score:.1f} (first "
           f"{scores[0]:.1f}; the gate's target {CART_GATE_TARGET:.0f} "
@@ -1571,24 +1616,34 @@ def offline_path(torch, dev, name: str, max_opts: int, min_score=None) -> None:
     if min_score is not None and not best >= min_score:
         fail(f"{name}: best normalized score {best} is under {min_score}")
 
-    # one chunk timed, 32 updates traced, from the run's final state
+    # from the run's final state: one chunk timed for the graphed trainer
+    # and its eager twin in turns (graphed, eager, eager, graphed), then 32
+    # updates of each traced
     gen = torch.Generator(device=dev).manual_seed(3)
     ag, buf = r.agent_state, r.buffer_state
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    ag, buf, _ = tr._chunk(ag, buf, gen)
-    torch.cuda.synchronize()
-    chunk_s = time.perf_counter() - t
-    tr.updates_per_chunk = 32
-
-    def updates():
-        tr._chunk(ag, buf, gen)
-
-    out = {"chunk_s": chunk_s,
-           "ms_per_update": 1e3 * chunk_s / OFFLINE_UPDATES_PER_CHUNK,
-           "update_trace": trace(torch, updates, 32)}
-    if not out["update_trace"]["device_busy_ms_each"] > 0:
+    twins = {"graphed": tr, "eager": OfflineTrainer(
+        agent, buffer, cfg, updates_per_chunk=OFFLINE_UPDATES_PER_CHUNK,
+        cuda_graphs=False)}
+    if not tr.cuda_graphs:
+        fail(f"{name}: the OfflineTrainer on the card is not graphed")
+    tr._chunk(ag, buf, gen)  # the capture, before anything is timed
+    out = {k: {"chunk_s": []} for k in twins}
+    for k in ("graphed", "eager", "eager", "graphed"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ag, buf, _ = twins[k]._chunk(ag, buf, gen)
+        torch.cuda.synchronize()
+        out[k]["chunk_s"].append(time.perf_counter() - t)
+    for k, t in twins.items():
+        out[k]["ms_per_update"] = [1e3 * x / OFFLINE_UPDATES_PER_CHUNK
+                                   for x in out[k]["chunk_s"]]
+        t.updates_per_chunk = 32
+        out[k]["update_trace"] = trace(torch, lambda: t._chunk(ag, buf, gen), 32)
+    if not out["eager"]["update_trace"]["device_busy_ms_each"] > 0:
         fail(f"{name}: the profiler saw no device time in the update trace")
+    if not (out["graphed"]["update_trace"]["host_ops_each"]
+            < out["eager"]["update_trace"]["host_ops_each"]):
+        fail(f"{name}: the graphed update makes no fewer host operator calls")
     print(f"breakdown ({name}): " + json.dumps(out), flush=True)
     del tr, r, buf_state
     torch.cuda.empty_cache()
@@ -1598,14 +1653,26 @@ def breakdown(torch, tr, r, label: str, env_only: bool = False,
               rounds: int = 2) -> None:
     """The env and update phases of a chunk of ``tr``'s path timed apart (host
     clock, each ending in a device sync), then a shorter stretch of each
-    traced (:func:`trace`).  Starts from the main path's final
-    agent and replay state, with the trainer's own buffer (and its modes).
-    ``env_only``: trace the env steps alone (the launches an env step);
-    ``rounds``: how often the two phases are timed apart."""
+    traced (:func:`trace`), for the graphed chunk (``tr``, CUDA-graph
+    replays) and the eager one (a twin of ``tr`` with ``cuda_graphs=False``)
+    in turns: graphed, eager, eager, graphed, ...  Starts from the main
+    path's final agent and replay state, with the trainer's own buffer (and
+    its modes); the two twins go on from each other's states.  For the
+    graphed twin the device time of a phase is also taken with CUDA events
+    while the host has queued the whole phase ahead of the card (so it
+    holds no host time).  ``env_only``: trace the env steps alone (the
+    launches an env step); ``rounds``: how often the two phases are timed
+    apart for each twin."""
     from border_tpu_torch.train import Trainer, TrainerConfig
 
     gen = torch.Generator(device=tr.device).manual_seed(3)
-    ag, vec, buf = r.agent_state, tr.vec.reset(1), r.buffer_state
+    c = tr.config
+    ag, buf = r.agent_state, r.buffer_state
+    twins = {"graphed": tr, "eager": Trainer(
+        tr.env, tr.agent, tr.buffer, c, cuda_graphs=False)}
+    if not tr.cuda_graphs:
+        fail(f"breakdown ({label}): the path's trainer is not graphed")
+    vecs = {k: tr.vec.reset(1) for k in twins}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1614,40 +1681,70 @@ def breakdown(torch, tr, r, label: str, env_only: bool = False,
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    c = tr.config
-    env_s, upd_s = [], []
-    for _ in range(0 if env_only else rounds):
-        (ag, vec, buf, _, _), t = timed(
-            lambda: tr._env_scan(ag, vec, buf, gen, explore=True))
-        env_s.append(t)
-        (ag, buf, _), t = timed(lambda: tr._update_scan(ag, buf, gen))
-        upd_s.append(t)
-    out = {"env_phase_s": env_s, "update_phase_s": upd_s,
-           "env_share_of_chunk": [e / (e + u) for e, u in zip(env_s, upd_s)],
-           "ms_per_env_step": [1e3 * e / c.steps_per_chunk for e in env_s],
-           "ms_per_update": [1e3 * u / tr.updates_per_chunk for u in upd_s]}
-
-    # a trainer built for the trace lengths: 2 env steps, 32 updates
-    trace_steps = 2
-    tt = Trainer(tr.env, tr.agent, tr.buffer, TrainerConfig(
-        num_envs=c.num_envs, steps_per_chunk=trace_steps,
-        batch_size=c.batch_size, opt_interval=c.opt_interval, warmup_period=0))
-
-    def env_phase():
-        nonlocal ag, vec, buf
-        ag, vec, buf, _, _ = tt._env_scan(ag, vec, buf, gen, explore=True)
-
-    def update_phase():
+    def env_phase(k, t):
         nonlocal ag, buf
-        ag, buf, _ = tt._update_scan(ag, buf, gen)
+        ag, vecs[k], buf, _, _ = t._env_scan(ag, vecs[k], buf, gen, explore=True)
 
-    phases = (("env", trace_steps, env_phase),
-              ("update", tt.updates_per_chunk, update_phase))
-    for phase, n, run in phases[:1] if env_only else phases:
-        out[f"{phase}_trace"] = trace(torch, run, n)
+    def update_phase(t):
+        nonlocal ag, buf
+        ag, buf, _ = t._update_scan(ag, buf, gen)
+
+    # the graphed twin's captures, before anything is timed
+    env_phase("graphed", tr)
+    if not env_only:
+        update_phase(tr)
+    out = {k: {"env_phase_s": [], "update_phase_s": []} for k in twins}
+    for i in range(0 if env_only else rounds):
+        for k in ("graphed", "eager") if i % 2 == 0 else ("eager", "graphed"):
+            out[k]["env_phase_s"].append(timed(lambda: env_phase(k, twins[k]))[1])
+            out[k]["update_phase_s"].append(timed(lambda: update_phase(twins[k]))[1])
+    for k, o in out.items():
+        o["ms_per_env_step"] = [1e3 * e / c.steps_per_chunk for e in o["env_phase_s"]]
+        o["ms_per_update"] = [1e3 * u / tr.updates_per_chunk
+                              for u in o["update_phase_s"]]
+
+    def device_ms(run, n):
+        """Device milliseconds per step of ``run()``: the card sleeps while
+        the host queues every replay, so the events hold no host time."""
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(200_000_000)
+        ev[0].record()
+        run()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / n
+
+    out["graphed"]["device_ms_per_env_step_events"] = device_ms(
+        lambda: env_phase("graphed", tr), c.steps_per_chunk)
+    if not env_only:
+        out["graphed"]["device_ms_per_update_events"] = device_ms(
+            lambda: update_phase(tr), tr.updates_per_chunk)
+
+    # trainers built for the trace lengths: 2 env steps, 32 updates
+    trace_steps = 2
+    for k, t in twins.items():
+        tt = Trainer(t.env, t.agent, t.buffer, TrainerConfig(
+            num_envs=c.num_envs, steps_per_chunk=trace_steps,
+            batch_size=c.batch_size, opt_interval=c.opt_interval,
+            warmup_period=0), cuda_graphs=t.cuda_graphs)
+        phases = [("env", trace_steps, lambda: env_phase(k, tt))]
+        if not env_only:
+            phases.append(("update", tt.updates_per_chunk,
+                           lambda: update_phase(tt)))
+        for phase, n, run in phases:
+            for _ in range(3):  # the eager warm-up and the capture, untraced
+                run()
+            out[k][f"{phase}_trace"] = trace(torch, run, n)
     last = "env_trace" if env_only else "update_trace"
-    if not out[last]["device_busy_ms_each"] > 0:
-        fail(f"the profiler saw no device time in the {last}")
+    if not out["eager"][last]["device_busy_ms_each"] > 0:
+        fail(f"the profiler saw no device time in the eager {last}")
+    for phase in ("env",) if env_only else ("env", "update"):
+        g, e = out["graphed"][f"{phase}_trace"], out["eager"][f"{phase}_trace"]
+        if not g["host_ops_each"] < e["host_ops_each"]:
+            fail(f"breakdown ({label}): graphed {phase} makes "
+                 f"{g['host_ops_each']} host operator calls each, eager "
+                 f"{e['host_ops_each']}")
     print(f"breakdown ({label}): " + json.dumps(out), flush=True)
 
 
@@ -2761,7 +2858,8 @@ def sharded_world_of_one(torch, dev) -> dict:
             if name == "sharded":
                 launches = frame_gather.gather_frames.launches
             out[name] = {"updates_per_s": tr.updates_per_chunk / dt,
-                         "loss": _loss_of(metrics), "gen": gen}
+                         "loss": _loss_of(metrics), "gen": gen,
+                         "graphed": tr.cuda_graphs}
         n_upd = sharded.updates_per_chunk
         if launches != n_upd or not math.isfinite(out["sharded"]["loss"]):
             fail(f"sharded (a): {launches} gather launches for {n_upd} updates, "
@@ -2774,6 +2872,17 @@ def sharded_world_of_one(torch, dev) -> dict:
         if out["plain"]["loss"] != out["sharded"]["loss"]:
             fail(f"sharded (a): loss {out['sharded']['loss']} != the plain "
                  f"Trainer's {out['plain']['loss']}")
+
+        # the sharded update chunk again, its first-time costs paid (its
+        # states go on from the compared ones, which were checked above)
+        a, v, b = (copy.deepcopy(x) for x in states["sharded"])
+        gen2 = torch.Generator(device=dev).manual_seed(8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, b = sharded._update_scan(a, b, gen2)[:2]
+        torch.cuda.synchronize()
+        again = sharded.updates_per_chunk / (time.perf_counter() - t0)
+        del a, v, b
 
         # one chunk of ShardedAsyncTrainer, from the sharded run's states
         tr = ShardedAsyncTrainer(env, sharded.agent, sharded.buffer, cfg, mesh=mesh)
@@ -2791,6 +2900,8 @@ def sharded_world_of_one(torch, dev) -> dict:
                  f"updates with {async_launches} gather launches")
         result = {"updates": n_upd, "updates_per_s_sharded": out["sharded"]["updates_per_s"],
                   "updates_per_s_plain": out["plain"]["updates_per_s"],
+                  "plain_graphed": out["plain"]["graphed"],
+                  "sharded_update_chunk_again_updates_per_s": again,
                   "loss": out["sharded"]["loss"], "gather_launches": launches,
                   "async_chunk_s": dt_async, "async_gather_launches": async_launches,
                   "async_loss": _loss_of(metrics)}
@@ -2877,7 +2988,7 @@ def sharded_rank(spec_path: str, rank: int) -> None:
         frame_gather.gather_frames.launches = 0
         ga, gb, _ = g._update_scan(ga, pb, ggen)  # the plain run's ring
         full = full_state_dict(ga.params)
-        lr = ga.opt_state.param_groups[0]["lr"]
+        lr = float(ga.opt_state.param_groups[0]["lr"])
         diffs = torch.cat([(full[k] - t).abs().reshape(-1)
                            for k, t in pa.params.state_dict().items()])
         moved = max((pa.params.state_dict()[k] - t).abs().max().item()
@@ -3032,5 +3143,7 @@ def sharded_paths(torch, dev) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--only"]:
+        main(only=set(sys.argv[2].split(",")))
     else:
         main()

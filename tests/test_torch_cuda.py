@@ -2,7 +2,9 @@
 PyTorch versions, bitwise; the sum tree, the games, the classic-control
 envs and the Reacher, and the DQN, IQN, SAC, AWAC and IQL updates on the
 card against the CPU path; a small prioritized train-checkpoint-resume on
-the card.  They skip without a CUDA device.
+the card; the graphed chunk (CUDA-graph replays) against the eager one,
+bitwise, on every graphed path, a graphed run resumed from a checkpoint,
+and a body that cannot be captured.  They skip without a CUDA device.
 
 This file imports no JAX, so on a machine without it (the GPU machine) it
 runs without the repo's JAX test harness:
@@ -625,3 +627,311 @@ def test_flat_per_draws_at_batch_not_a_power_of_two_match_cpu_path(batch):
         want = bufs["cpu"].draw_per(states["cpu"], None, batch, n_opts=50, u=u)
         assert torch.equal(got[0].cpu(), want[0])
         torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+
+
+# -- CUDA graphs: the graphed chunk against the eager one --------------------
+
+def _leaves_of(*states):
+    """(path, leaf) pairs of states packed as a checkpoint packs them."""
+    from border_tpu_torch.utils.checkpoint import pack_state
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from walk(v, f"{path}/{k}")
+        else:
+            yield path, x
+
+    for i, s in enumerate(states):
+        yield from walk(pack_state(s), str(i))
+
+
+def _assert_bitwise(got, want):
+    got, want = dict(_leaves_of(*got)), dict(_leaves_of(*want))
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g = got[k]
+        if torch.is_tensor(w):
+            assert g.dtype == w.dtype and torch.equal(g, w), k
+        else:
+            assert g == w, k
+
+
+def _graphed_vs_eager(make_trainer, update_chunks=3, warm_chunks=1):
+    """The same states and generator states through ``update_chunks``
+    graphed chunks and as many eager ones (``cuda_graphs=False``): agent
+    state (parameters, targets, optimizer moments and steps, counters),
+    replay state, env state, both generators and every chunk's metrics
+    equal bitwise.  Returns the graphed trainer and its final agent state."""
+    out = {}
+    for graphs in (True, False):
+        tr = make_trainer(graphs)
+        assert tr.cuda_graphs is graphs
+        ag, vec, buf = tr.init_states(0, 1)
+        gen = tr._loop_generator(0)
+        launches = frame_gather.gather_frames.launches
+        for _ in range(warm_chunks):
+            ag, vec, buf, _, _, _ = tr._chunk(ag, vec, buf, gen, False)
+        chunks = []
+        for _ in range(update_chunks):
+            ag, vec, buf, metrics, ret, cnt = tr._chunk(ag, vec, buf, gen, True)
+            chunks.append({**metrics, "ret": ret, "cnt": cnt})
+        torch.cuda.synchronize()
+        out[graphs] = (ag, vec, buf, gen, chunks,
+                       frame_gather.gather_frames.launches - launches, tr)
+    g, e = out[True], out[False]
+    _assert_bitwise(g[:4], e[:4])
+    for cg, ce in zip(g[4], e[4]):
+        assert cg.keys() == ce.keys()
+        for k in ce:
+            assert torch.equal(cg[k], ce[k]), k
+    assert g[5] == e[5]  # the gather's launches, counted per replay
+    assert g[6]._graphs and all(loop.graph is not None
+                                for loop in g[6]._graphs.values())
+    return g[6], g[0], g[5]
+
+
+def _pong_trainer(buffer_kw=None, agent=None, **cfg):
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig
+
+    def build(graphs):
+        # a hard target sync every 20 updates, ε and the rate decaying
+        # within the run
+        ag = agent() if agent else DQN(DQNConfig(
+            model=lambda n: AtariCNN(n), lr=1e-3, lr_decay_steps=64,
+            double_dqn=True, soft_update_interval=20, tau=1.0,
+            eps_final_step=2_000))
+        return Trainer(make("Pong-v0"), ag,
+                       FrameReplayBuffer(64, 64, **(buffer_kw or {})),
+                       TrainerConfig(**{**dict(
+                           num_envs=64, steps_per_chunk=8, batch_size=32,
+                           opt_interval=16, warmup_period=0), **cfg}),
+                       cuda_graphs=graphs)
+    return build
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sequential", "prefetch", "sample_batches"])
+def test_graphed_uniform_pong_chunk_equals_eager_chunk_bitwise(order):
+    """Uniform DQN on Pong (bf16 AtariCNN, union sampling through the
+    gather kernel): three graphed chunks of 32 updates, crossing target
+    syncs, ε and learning-rate decay, equal three eager ones bitwise; the
+    gather's launches count one per update under replay too."""
+    _cuda()
+    cfg = {"sequential": {}, "prefetch": dict(prefetch_sample=True),
+           "sample_batches": dict(updates_per_sample_batch=4)}[order]
+    tr, ag, launches = _graphed_vs_eager(_pong_trainer(**cfg))
+    m = tr.updates_per_chunk
+    # one gather a sample: M+1 samples a chunk when prefetching, M/4 of
+    # four batches each in the sample-batch order
+    samples = {"sequential": m, "prefetch": m + 1, "sample_batches": m // 4}
+    assert ag.n_opts == 3 * m and launches == 3 * samples[order]
+    assert int(ag.counts[0]) == ag.n_opts and ag.n_samples == 4 * 8 * 64
+
+
+@pytest.mark.cuda
+def test_graphed_per_pong_chunk_equals_eager_chunk_bitwise():
+    """PER on Pong (the sum tree's residency pushes, β annealing, priority
+    write-back): graphed chunks equal eager ones bitwise."""
+    from border_tpu_torch.replay import PerConfig
+
+    _cuda()
+    tr, ag, launches = _graphed_vs_eager(
+        _pong_trainer(dict(per=PerConfig(n_opts_final=64))))
+    assert launches == ag.n_opts == 3 * tr.updates_per_chunk
+
+
+@pytest.mark.cuda
+def test_graphed_iqn_seaquest_chunk_equals_eager_chunk_bitwise():
+    """IQN on Seaquest (the CNN's features, three τ draws an update)."""
+    import functools
+
+    from border_tpu_torch.agents import IQN, IQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig
+
+    _cuda()
+
+    def build(graphs):
+        agent = IQN(IQNConfig(
+            psi_fn=functools.partial(AtariCNN, out_dim=0, skip_linear=True),
+            feature_dim=512, n_cos=64, hidden=(512,),
+            sample_percents_pred="uniform8", sample_percents_tgt="uniform8",
+            sample_percents_act="const32", lr=1e-4,
+            soft_update_interval=20, tau=1.0, eps_final_step=2_000))
+        return Trainer(make("Seaquest-v0"), agent, FrameReplayBuffer(64, 64),
+                       TrainerConfig(num_envs=64, steps_per_chunk=8,
+                                     batch_size=32, opt_interval=16,
+                                     warmup_period=0), cuda_graphs=graphs)
+
+    _graphed_vs_eager(build)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_step", [1, 3])
+def test_graphed_flat_buffer_cartpole_chunk_equals_eager_chunk_bitwise(n_step):
+    """DQN-MLP on CartPole through the flat ring (the device cursor and
+    size, the ring wrapping within the run; n-step 3 too)."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig
+
+    _cuda()
+
+    def build(graphs):
+        agent = DQN(DQNConfig(hidden=(64, 64), lr=1e-3, lr_decay_steps=100,
+                              soft_update_interval=10, tau=1.0,
+                              eps_final_step=3_000))
+        return Trainer(make("CartPole-v1"), agent,
+                       ReplayBuffer(2048, n_step=n_step, stride=128),
+                       TrainerConfig(num_envs=128, steps_per_chunk=8,
+                                     batch_size=64, opt_interval=32,
+                                     warmup_period=0), cuda_graphs=graphs)
+
+    tr, ag, _ = _graphed_vs_eager(build, update_chunks=3)
+    assert ag.n_samples == 4 * 8 * 128
+
+
+@pytest.mark.cuda
+def test_graphed_sac_pendulum_chunk_equals_eager_chunk_bitwise():
+    """SAC on Pendulum: three optimizers (auto entropy coefficient), polyak
+    targets, two normal draws an update."""
+    from border_tpu_torch.agents import SAC, SACConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig
+
+    _cuda()
+
+    def build(graphs):
+        return Trainer(make("Pendulum-v1"),
+                       SAC(SACConfig(actor_hidden=(64, 64),
+                                     critic_hidden=(64, 64))),
+                       ReplayBuffer(4096),
+                       TrainerConfig(num_envs=32, steps_per_chunk=8,
+                                     batch_size=64, opt_interval=8,
+                                     warmup_period=0), cuda_graphs=graphs)
+
+    _graphed_vs_eager(build)
+
+
+def _offline_buffer(n=2048, obs_dim=6, act_dim=2, seed=0):
+    """A flat buffer filled with seeded random transitions on the card."""
+    from border_tpu_torch.replay import ReplayBuffer, Transition
+
+    g = torch.Generator().manual_seed(seed)
+    buf = ReplayBuffer(n)
+    z = torch.zeros(obs_dim)
+    flag = torch.zeros((), dtype=torch.bool)
+    st = buf.init(_to(Transition(z, torch.zeros(act_dim), z, torch.zeros(()),
+                                 flag, flag), "cuda"))
+    buf.push(st, _to(Transition(
+        obs=torch.randn((n, obs_dim), generator=g),
+        act=torch.rand((n, act_dim), generator=g) * 2 - 1,
+        next_obs=torch.randn((n, obs_dim), generator=g),
+        reward=torch.rand((n,), generator=g),
+        terminated=torch.rand((n,), generator=g) < 0.05,
+        truncated=torch.zeros((n,), dtype=torch.bool)), "cuda"))
+    return buf, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bc", "awac", "iql"])
+def test_graphed_offline_chunk_equals_eager_chunk_bitwise(name):
+    """OfflineTrainer: BC with the cosine learning-rate schedule, AWAC and
+    IQL, three graphed chunks of 40 updates against three eager ones."""
+    from border_tpu_torch.agents import (AWAC, AWACConfig, BC, BCConfig, IQL,
+                                         IQLConfig)
+    from border_tpu_torch.agents.common import cosine_decay_schedule
+    from border_tpu_torch.core.spaces import Box
+    from border_tpu_torch.train import OfflineTrainer, TrainerConfig
+
+    _cuda()
+    obs_space, act_space = Box(-10.0, 10.0, (6,)), Box(-1.0, 1.0, (2,))
+    make_agent = {
+        "bc": lambda: BC(BCConfig(lr=cosine_decay_schedule(1e-3, 100),
+                                  hidden=(64, 64))),
+        "awac": lambda: AWAC(AWACConfig(actor_hidden=(64, 64),
+                                        critic_hidden=(64, 64))),
+        "iql": lambda: IQL(IQLConfig(actor_hidden=(64, 64),
+                                     critic_hidden=(64, 64))),
+    }[name]
+    out = {}
+    for graphs in (True, False):
+        agent = make_agent()
+        buf, bst = _offline_buffer()
+        st = agent.init(0, obs_space, act_space)
+        tr = OfflineTrainer(agent, buf, TrainerConfig(batch_size=64),
+                            updates_per_chunk=40, cuda_graphs=graphs)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        sums = []
+        for _ in range(3):
+            st, bst, s = tr._chunk(st, bst, gen)
+            sums.append(s)
+        torch.cuda.synchronize()
+        out[graphs] = (st, bst, gen, sums)
+    _assert_bitwise(out[True][:3], out[False][:3])
+    for a, b in zip(out[True][3], out[False][3]):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert out[True][0].n_opts == 120
+
+
+@pytest.mark.cuda
+def test_graphed_run_resumed_from_checkpoint_equals_uninterrupted(tmp_path):
+    """Trainer.train() graphed, checkpointed after its second chunk, and a
+    new trainer resumed from there: the same final state, bitwise, as the
+    uninterrupted graphed run (the device counters are restored in place
+    into the states the new graphs capture)."""
+    import dataclasses
+
+    from border_tpu_torch.utils import CheckpointManager
+
+    _cuda()
+    build = _pong_trainer(max_opts=96)
+    want = build(True).train(seed=0)
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
+    tr = build(True)
+    tr.checkpoint_manager, tr.checkpoint_interval = mgr, 64
+    tr.config = dataclasses.replace(tr.config, max_opts=64)
+    tr.train(seed=0)
+    assert mgr.all_steps() == [64]
+    got = build(True).train(seed=0, resume_from=mgr)
+    assert got.opt_steps == want.opt_steps == 96
+    _assert_bitwise((got.agent_state, got.buffer_state),
+                    (want.agent_state, want.buffer_state))
+
+
+@pytest.mark.cuda
+def test_uncapturable_update_raises_and_does_not_fall_back():
+    """An agent whose update reads a device value on the host: the graphed
+    trainer raises GraphCaptureError naming the operator; it does not run
+    the eager path instead."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.train.graphs import WARMUP, GraphCaptureError
+
+    _cuda()
+
+    class Syncing(DQN):
+        def update(self, state, batch, gen=None):
+            state, metrics, td = super().update(state, batch, gen)
+            if float(metrics["loss"]) < 0:  # a host read: cannot be captured
+                metrics["loss"] = -metrics["loss"]
+            return state, metrics, td
+
+    tr = _pong_trainer(agent=lambda: Syncing(DQNConfig(
+        model=lambda n: AtariCNN(n))))(True)
+    ag, vec, buf = tr.init_states(0, 1)
+    gen = tr._loop_generator(0)
+    ag, vec, buf, *_ = tr._chunk(ag, vec, buf, gen, False)
+    with pytest.raises(GraphCaptureError, match="_local_scalar_dense"):
+        tr._chunk(ag, vec, buf, gen, True)
+    # the eager warm-up ran; the rest of the chunk did not, eagerly or not
+    assert int(ag.counts[0]) == WARMUP < tr.updates_per_chunk
