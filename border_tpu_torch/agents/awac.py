@@ -17,7 +17,6 @@ import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
-from torch import nn
 
 from border_tpu_torch.agents import gaussian
 from border_tpu_torch.agents.common import (
@@ -72,6 +71,8 @@ class GaussianActorAgent(Agent):
     """What AWAC and IQL share: a Gaussian actor whose actions the action
     limit bounds (``clamp`` to the Box's bounds, or ``tanh``)."""
 
+    policy_field = "actor_params"
+
     def _bounds(self, act_space: spaces.Box) -> None:
         self.act_dim = int(act_space.flat_dim)
         self.act_low = float(torch.as_tensor(act_space.low).min())
@@ -110,12 +111,6 @@ class GaussianActorAgent(Agent):
         loss = -(w * logp).mean()
         minimize(state.actor_opt, loss, group=self.axis_group)
         return loss.detach()
-
-    def policy_params(self, state) -> nn.Module:
-        return state.actor_params
-
-    def sync_policy(self, state, policy_params: nn.Module):
-        return dataclasses.replace(state, actor_params=policy_params)
 
 
 class AWAC(GaussianActorAgent):

@@ -13,7 +13,6 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from border_tpu_torch.agents.common import (
     LearningRate,
@@ -101,8 +100,3 @@ class BC(Agent):
         advance(state, "n_opts", 1)
         return state, {"loss": loss.detach()}, None
 
-    def policy_params(self, state: BCState) -> nn.Module:
-        return state.params
-
-    def sync_policy(self, state, policy_params: nn.Module):
-        return dataclasses.replace(state, params=policy_params)

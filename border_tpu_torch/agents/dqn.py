@@ -239,8 +239,3 @@ class DQN(Agent):
         }
         return state, metrics, pred - target
 
-    def policy_params(self, state: DQNState) -> nn.Module:
-        return state.params
-
-    def sync_policy(self, state, policy_params: nn.Module):
-        return dataclasses.replace(state, params=policy_params)

@@ -227,8 +227,3 @@ class IQN(Agent):
         }
         return state, metrics, td_err
 
-    def policy_params(self, state: IQNState) -> nn.Module:
-        return state.params
-
-    def sync_policy(self, state, policy_params: nn.Module):
-        return dataclasses.replace(state, params=policy_params)

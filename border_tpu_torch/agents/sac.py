@@ -84,6 +84,7 @@ class SACState:
 
 class SAC(Agent):
     name = "sac"
+    policy_field = "actor_params"
 
     def __init__(self, config: SACConfig = SACConfig()):
         self.config = config
@@ -213,8 +214,3 @@ class SAC(Agent):
         }
         return state, metrics, td_err
 
-    def policy_params(self, state: SACState) -> nn.Module:
-        return state.actor_params
-
-    def sync_policy(self, state, policy_params: nn.Module):
-        return dataclasses.replace(state, actor_params=policy_params)

@@ -15,6 +15,7 @@ numpy arrays, readable without torch.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -90,16 +91,28 @@ class Agent:
         """(opt-step counter, inference-relevant params) for actor sync."""
         return state.n_opts, self.policy_params(state)
 
+    # the state's field that holds the policy's module
+    policy_field = "params"
+
     def policy_params(self, state: AgentState) -> Any:
         """The parameters action selection needs."""
-        raise NotImplementedError
+        return getattr(state, self.policy_field)
 
-    def sync_policy(self, state: AgentState, policy_params: Any) -> AgentState:
-        """A new state object that acts with ``policy_params`` (a module of
-        the same structure as ``policy_params(state)``) and shares every
-        other field with ``state``; its host-int counters are its own.
-        Neither the given module nor ``state`` is changed."""
-        raise NotImplementedError
+    def sync_policy(self, state: AgentState, policy_params: Any,
+                    into: Optional[AgentState] = None) -> AgentState:
+        """A state that acts with ``policy_params`` (a module of the same
+        structure as ``policy_params(state)``) and shares every other field
+        with ``state``; its host-int counters are its own.  Neither the
+        given module nor ``state`` is changed.  A new state object, or
+        ``into`` with its fields set so: a state that persists (the async
+        actor's, which CUDA graphs hold) refreshed from ``state``."""
+        fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+        fields[self.policy_field] = policy_params
+        if into is None:
+            return type(state)(**fields)
+        for name, v in fields.items():
+            setattr(into, name, v)
+        return into
 
     # -- checkpointing (≙ Agent::save_params/load_params) ------------------
     def save(self, state: AgentState, path: str) -> None:

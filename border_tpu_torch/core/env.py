@@ -176,11 +176,15 @@ class VecEnv:
             last_length=zeros_i.clone(), gen=gen,
         )
 
-    def reset_with_index(self, base_seed: int, index: int) -> VecEnvState:
+    def reset_with_index(self, base_seed: int, index: int,
+                         gen: Optional[torch.Generator] = None) -> VecEnvState:
         """Deterministic per-index reset for evaluation
         (≙ Env::reset_with_index, env.rs:162-180): a fresh generator seeded
-        with :func:`index_seed`."""
-        return self.reset(index_seed(base_seed, index))
+        with :func:`index_seed`, or ``gen`` re-seeded with it in place (a
+        CUDA graph of an evaluation's steps holds its generator, and replays
+        the draws of a later evaluation only from that one)."""
+        return self.reset(as_generator(index_seed(base_seed, index), self.device,
+                                       into=gen))
 
     def step(
         self, state: VecEnvState, action: torch.Tensor

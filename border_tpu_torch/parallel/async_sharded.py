@@ -13,4 +13,6 @@ from border_tpu_torch.train.async_trainer import AsyncTrainer
 
 
 class ShardedAsyncTrainer(AsyncTrainer, ShardedTrainer):
-    """MRO: AsyncTrainer's ``_dispatch`` over ShardedTrainer's chunk."""
+    """MRO: AsyncTrainer's ``_dispatch`` over ShardedTrainer's chunk;
+    ``graphable`` is ShardedTrainer's, set per instance from the group's
+    backend (graphs under NCCL, eager under gloo)."""

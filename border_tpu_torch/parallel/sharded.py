@@ -42,7 +42,12 @@ from border_tpu_torch.record.record import Record
 from border_tpu_torch.record.recorder import Recorder
 from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
-from border_tpu_torch.train.trainer import Trainer, example_transition, update_burst
+from border_tpu_torch.train.trainer import (
+    Trainer,
+    example_transition,
+    graphed_updates,
+    update_burst,
+)
 from border_tpu_torch.utils import collectives
 from border_tpu_torch.utils.device import DeviceLike
 
@@ -83,11 +88,16 @@ class ShardedTrainer(Trainer):
     owns ``num_envs / n`` envs and a replay shard of ``capacity`` (so the
     global capacity is n× the single-device config, matching per-actor
     buffers).  ``mesh``: a ``DeviceMesh`` with the axis ``axis`` (default:
-    every rank of the process group on one axis).  The chunk runs eagerly
-    (its collectives are outside any graph).
-    """
+    every rank of the process group on one axis).
 
-    graphable = False
+    Over NCCL the rank's env steps and updates replay captured CUDA graphs
+    as the Trainer's do, each update's gradient all-reduce captured inside
+    the update's graph; the collectives that run once a chunk (the episode
+    sums, the metrics' mean, the summed fill, the evaluation's broadcast)
+    stay outside the graphs.  gloo collectives cannot be captured: over
+    gloo the chunk runs eagerly (``graphable`` is False, and
+    ``cuda_graphs=True`` raises ``ConfigError``).
+    """
 
     def __init__(
         self,
@@ -100,6 +110,7 @@ class ShardedTrainer(Trainer):
         mesh=None,
         axis: str = "actors",
         device: DeviceLike = None,
+        cuda_graphs: Optional[bool] = None,
     ):
         # the group resolves before Trainer.__init__, whose n-step stride
         # check reads the rank's env count (_nstep_expected_stride)
@@ -110,9 +121,12 @@ class ShardedTrainer(Trainer):
         self.group = mesh.get_group(axis)
         self.n_dev = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
+        # an instance attribute, so ShardedAsyncTrainer (AsyncTrainer's
+        # dispatch first in its bases) resolves it from the backend too
+        self.graphable = dist.get_backend(self.group) == "nccl"
         super().__init__(env, agent, buffer, config,
                          recorder if self.rank == 0 else None, evaluator,
-                         device=device)
+                         device=device, cuda_graphs=cuda_graphs)
         if config.num_envs % self.n_dev:
             raise ValueError("num_envs must divide the actor axis size")
         if config.batch_size % self.n_dev:
@@ -157,9 +171,15 @@ class ShardedTrainer(Trainer):
     # -- the chunk -----------------------------------------------------------
     def _update_scan(self, agent_state, buf_state, gen: torch.Generator):
         """M updates in order, each on a local batch from the rank's shard
-        (the JAX trainer's ``_update_scan_local``)."""
-        return update_burst(self.agent, self.buffer, agent_state, buf_state,
-                            gen, self.local_batch, self.updates_per_chunk)
+        (the JAX trainer's ``_update_scan_local``): replays of one captured
+        update, its all-reduce inside, under NCCL; eagerly otherwise."""
+        m = self.updates_per_chunk
+        if not self.cuda_graphs:
+            return update_burst(self.agent, self.buffer, agent_state, buf_state,
+                                gen, self.local_batch, m)
+        sums = graphed_updates(self._graphs, self.agent, self.buffer,
+                               agent_state, buf_state, gen, self.local_batch, m)
+        return agent_state, buf_state, {k: v / m for k, v in sums.items()}
 
     def _chunk(self, agent_state, vec_state, buf_state, gen: torch.Generator,
                do_update: bool, do_env: bool = True):

@@ -14,6 +14,14 @@ actor phase acts on a state that shares every field with the learner's but
 the policy (``Agent.sync_policy``); the env-step counters it advances (the
 ε schedule's ``n_samples``) are carried back onto the learner's state.
 
+On a CUDA device both phases replay captured CUDA graphs, as the Trainer's
+chunk does: the actor's env steps and the learner's updates.  A graph holds
+the objects it was captured with, so the actor's state and its copy of the
+policy persist across chunks: the state is refreshed in place from the
+learner's (``sync_policy(..., into=)``), a sync and a checkpoint restore
+load the learner's tensors into the same copy, and the learner's state
+takes the actor's counters in place.
+
 A :meth:`Trainer._dispatch` override: every cadence (evaluation and
 best-model, saves, full-state checkpoints and bit-exact ``resume_from``,
 compute-cost and param-stat records) is the Trainer's.  The actor's
@@ -40,11 +48,11 @@ def _snapshot(module: nn.Module) -> nn.Module:
 
 
 class AsyncTrainer(Trainer):
-    """Alternates actor chunks (stale parameters) and learner chunks.  The
-    actor's state is made anew every chunk, so the chunk runs eagerly."""
+    """Alternates actor chunks (stale parameters) and learner chunks."""
 
-    graphable = False
     _actor_params: Optional[nn.Module] = None
+    _actor_state = None  # the actor's persistent state (sync_policy)
+    _actor_for = None  # the learner's state it was made from
     _last_sync: int = 0
 
     def _sync(self, policy: nn.Module, n_opts: int) -> None:
@@ -53,6 +61,18 @@ class AsyncTrainer(Trainer):
         else:
             self._actor_params.load_state_dict(policy.state_dict())
         self._last_sync = n_opts
+
+    def _actor(self, agent_state):
+        """The actor's state: the learner's fields but the policy, which is
+        the stale copy; the same object from chunk to chunk while the
+        learner's state and the copy are."""
+        actor = self._actor_state
+        if (actor is None or self._actor_for is not agent_state
+                or self.agent.policy_params(actor) is not self._actor_params):
+            actor = self._actor_state = self.agent.sync_policy(
+                agent_state, self._actor_params)
+            self._actor_for = agent_state
+        return self.agent.sync_policy(agent_state, self._actor_params, into=actor)
 
     def _dispatch(self, agent_state, vec_state, buffer_state,
                   gen: torch.Generator, warmed: bool):
@@ -63,11 +83,10 @@ class AsyncTrainer(Trainer):
             self._sync(policy, agent_state.n_opts)
 
         # actor phase: stale policy, no updates
-        actor_state = self.agent.sync_policy(agent_state, self._actor_params)
         actor_state, vec_state, buffer_state, _, ep_ret, ep_cnt = self._chunk(
-            actor_state, vec_state, buffer_state, gen, False, True)
+            self._actor(agent_state), vec_state, buffer_state, gen, False, True)
         # the learner's own policy, with the advanced env counters
-        learner_state = self.agent.sync_policy(actor_state, policy)
+        learner_state = self.agent.sync_policy(actor_state, policy, into=agent_state)
 
         metrics = {}
         if warmed:
@@ -83,6 +102,10 @@ class AsyncTrainer(Trainer):
         return {"actor_params": params, "last_sync": self._last_sync}
 
     def _restore_checkpoint_extra(self, ex: dict, agent_state) -> None:
-        self._actor_params = _snapshot(self.agent.policy_params(agent_state))
+        """Into the existing copy, in place, where there is one: a graph
+        of an earlier chunk never holds a copy that is no longer the
+        actor's."""
+        if self._actor_params is None:
+            self._actor_params = _snapshot(self.agent.policy_params(agent_state))
         self._actor_params.load_state_dict(ex["actor_params"])
         self._last_sync = int(ex["last_sync"])

@@ -26,7 +26,17 @@ on its next, and replays it from then on.  A capture that fails raises
 :class:`GraphCaptureError` naming the operator that broke it; nothing falls
 back to the eager body.  Each replay adds the kernel launches its capture
 recorded to the counted wrappers' ``launches``
-(:data:`border_tpu_torch.ops.COUNTED`).
+(:data:`border_tpu_torch.ops.COUNTED`) and the collectives it recorded
+(an update's gradient all-reduce under NCCL) to
+:data:`border_tpu_torch.utils.collectives.counts`.
+
+``run(n)`` takes any ``n`` from call to call: a host-env iteration replays
+its device step once and its update burst as often as the iteration's
+share of updates, and an evaluation replays its env step in blocks of up
+to 8.  A generator the body draws from may be re-seeded in place between
+runs (``manual_seed`` or ``set_state``, as a checkpoint restore does): the
+graph holds the generator's state, so its next replay draws from the new
+seed.  A new generator object would need a new capture.
 """
 
 from __future__ import annotations
@@ -38,14 +48,31 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from border_tpu_torch.errors import BorderTpuError
+from border_tpu_torch.errors import BorderTpuError, ConfigError
 from border_tpu_torch.ops import COUNTED
+from border_tpu_torch.utils import collectives
 
 WARMUP = 3
 
 
 class GraphCaptureError(BorderTpuError, RuntimeError):
     """A loop body could not be captured into a CUDA graph."""
+
+
+def resolve_cuda_graphs(cuda_graphs: Optional[bool], device: torch.device,
+                        graphable: bool = True, owner: str = "Trainer") -> bool:
+    """The ``cuda_graphs`` switch of a trainer or an evaluator on
+    ``device``: None means on a CUDA device; True raises on the CPU and for
+    an ``owner`` whose loop is not graphable (``graphable``), which then
+    runs eagerly."""
+    if cuda_graphs and device.type != "cuda":
+        raise ConfigError(f"cuda_graphs=True needs a CUDA device, not {device}")
+    if cuda_graphs and not graphable:
+        raise ConfigError(f"{owner} runs its chunk eagerly: cuda_graphs=True "
+                          f"is not available")
+    if cuda_graphs is None:
+        return graphable and device.type == "cuda"
+    return bool(cuda_graphs)
 
 
 def _leaves(x: Any, path: str = ""):
@@ -142,6 +169,7 @@ class LoopGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.stream: Optional[torch.cuda.Stream] = None
         self.launches_each: List[tuple] = []
+        self.collectives_each: Dict[tuple, int] = {}
         # the caller's fixed tensors the body writes: its device sums and,
         # for a prefetching body, the batch it carries between iterations
         self.sums: Any = None
@@ -175,12 +203,15 @@ class LoopGraph:
             self.graph.replay()
         for fn, k in self.launches_each:
             fn.launches += k * n
+        for key, k in self.collectives_each.items():
+            collectives.counts[key] += k * n
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = [fn.captured for fn in COUNTED]
+        before_collectives = collectives.captured.copy()
         last = _LastOp()
         try:
             with torch.cuda.graph(graph, stream=self._side_stream()):
@@ -202,4 +233,5 @@ class LoopGraph:
         self.launches_each = [(fn, fn.captured - b)
                               for fn, b in zip(COUNTED, before)
                               if fn.captured != b]
+        self.collectives_each = dict(collectives.captured - before_collectives)
         self.graph = graph

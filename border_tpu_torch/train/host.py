@@ -12,9 +12,10 @@ One iteration, pipelined one step deep:
 1. the update burst for the transitions pushed so far is queued on the
    device while the feeder thread steps the host envs with the actions of
    the previous iteration;
-2. the step's results are collected, uploaded and pushed into the replay;
-3. the next actions are selected and copied to the host (``act.cpu()``,
-   the iteration's one device→host sync, which in stream order also waits
+2. the step's results are collected, uploaded and pushed into the replay,
+   and the device obs advanced (in place: the push reads it first);
+3. the next actions are selected and copied to the host with the counters
+   (the iteration's one device→host sync, which in stream order also waits
    for the burst) and handed to the feeder.
 
 The C++ env step overlaps the burst because a ``ctypes`` call releases the
@@ -30,6 +31,18 @@ and the frame-dedup replay stores each frame once.  Where the host env ends
 a learning episode without resetting the game (the C++ Breakout's life loss
 in train mode) the device ring restarts while the host's stack goes on, as
 in the JAX package, whose replay reconstructs the same restarted window.
+
+On a CUDA device (``cuda_graphs``, as the Trainer's) an iteration's device
+work is replays of captured CUDA graphs (≙ the JAX trainer's jitted
+``_select``, ``_ingest``, ``_advance_stack`` and ``_update_burst``): the
+burst is ``m`` replays of one captured update, and the device step (push,
+the env-step counters, the stack ring and the next actions) one replay.
+The host's arrays reach it through fixed tensors (:class:`HostIO`: pinned
+host buffers and non-blocking copies), and the actions and the counters
+come back in non-blocking copies behind one event, the iteration's one
+sync, after which the host mirrors of the counters (the update count, the
+ring's fill), which a replay does not advance, are set from what came
+back.  ``cuda_graphs=False`` runs the same operations eagerly.
 """
 
 from __future__ import annotations
@@ -43,20 +56,25 @@ import torch
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.core.env import Timestep, index_seed
 from border_tpu_torch.envs.native import AsyncEnvFeeder, NativeVecEnv
+from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.record.record import Record
 from border_tpu_torch.record.recorder import NullRecorder, Recorder
 from border_tpu_torch.replay.frame_buffer import FrameReplayBuffer
 from border_tpu_torch.train.config import TrainerConfig
+from border_tpu_torch.train.graphs import LoopGraph, resolve_cuda_graphs
 from border_tpu_torch.train.trainer import (
     Trainer,
     TrainResult,
     _reconcile_next_cadence,
+    _same_states,
     example_transition,
+    graphed_updates,
     metrics_to_host,
     param_stats_record,
     update_burst,
 )
-from border_tpu_torch.utils.device import DeviceLike, resolve_device
+from border_tpu_torch.utils.counters import counts_of, set_mirrors
+from border_tpu_torch.utils.device import DeviceLike, as_generator, resolve_device
 
 
 def _make_host_env(env: Union[str, Any], num_envs: int, seed: int,
@@ -70,6 +88,63 @@ def _make_host_env(env: Union[str, Any], num_envs: int, seed: int,
     return env
 
 
+class HostIO:
+    """Host arrays in and device tensors out through tensors that keep
+    their addresses, so a CUDA graph replay reads and writes the same
+    memory every step.
+
+    ``upload(name, x)`` copies ``x`` into the fixed device tensor ``name``
+    (made at its first upload with ``x``'s shape and dtype): on a CUDA
+    device through a pinned host buffer and a non-blocking copy.
+    ``download(*tensors)`` brings tensors to the host: on a CUDA device in
+    non-blocking copies into pinned buffers behind one event, waited for
+    once.  The pinned buffers are written again only after that wait, so
+    an upload's copy has left them by then.  On the CPU the fixed tensors
+    are plain tensors and a download returns views of its tensors."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.dev: Dict[str, torch.Tensor] = {}
+        self._pinned: Dict[Any, torch.Tensor] = {}
+        self._event = torch.cuda.Event() if self.cuda else None
+
+    def upload(self, name: str, x: np.ndarray) -> torch.Tensor:
+        src = torch.as_tensor(np.ascontiguousarray(x))
+        d = self.dev.get(name)
+        if d is None:
+            d = self.dev[name] = torch.empty(src.shape, dtype=src.dtype,
+                                             device=self.device)
+            if self.cuda:
+                self._pinned[name] = torch.empty(src.shape, dtype=src.dtype,
+                                                 pin_memory=True)
+        elif d.shape != src.shape or d.dtype != src.dtype:
+            raise ValueError(
+                f"host array {name!r} changed from {tuple(d.shape)} {d.dtype} "
+                f"to {tuple(src.shape)} {src.dtype}")
+        if self.cuda:
+            self._pinned[name].copy_(src)
+            d.copy_(self._pinned[name], non_blocking=True)
+        else:
+            d.copy_(src)
+        return d
+
+    def download(self, *tensors: torch.Tensor) -> List[np.ndarray]:
+        if not self.cuda:
+            return [t.numpy() for t in tensors]
+        out = []
+        for i, t in enumerate(tensors):
+            p = self._pinned.get(i)
+            if p is None or p.shape != t.shape or p.dtype != t.dtype:
+                p = self._pinned[i] = torch.empty(t.shape, dtype=t.dtype,
+                                                  pin_memory=True)
+            p.copy_(t, non_blocking=True)
+            out.append(p)
+        self._event.record()
+        self._event.synchronize()
+        return [p.numpy() for p in out]
+
+
 class HostEvaluator:
     """Deterministic-seed evaluation on fresh host envs.
 
@@ -77,11 +152,17 @@ class HostEvaluator:
     rewards), or a factory ``(n_episodes, seed) -> host env``.  The
     evaluation runs on the device of the agent's policy; the actions of
     evaluation ``i`` draw from a generator seeded by
-    ``index_seed(base_seed, i + 1)``, as :class:`Evaluator`'s."""
+    ``index_seed(base_seed, i + 1)``, as :class:`Evaluator`'s: one
+    generator a device, re-seeded in place.  On a CUDA device
+    (``cuda_graphs``: None or True) each step's ``select_action_eval`` is
+    a replay of one captured CUDA graph, its observation uploaded into a
+    fixed tensor and its actions read back through a pinned buffer
+    (:class:`HostIO`); ``cuda_graphs=False`` runs it eagerly, and True
+    where the policy is on the CPU raises ``ConfigError``."""
 
     def __init__(self, env: Union[str, Callable[[int, int], Any]],
                  n_episodes: int = 5, max_steps: int = 7_000,
-                 base_seed: int = 424242):
+                 base_seed: int = 424242, cuda_graphs: Optional[bool] = None):
         # the default horizon covers the pixel envs' own episode cap
         # (27,000 emulator frames at frame-skip 4: 6,750 agent steps); an
         # evaluation capped shorter scores truncated returns, which the
@@ -90,26 +171,60 @@ class HostEvaluator:
             name = env
             env = lambda n, seed: NativeVecEnv(  # noqa: E731
                 name, n, seed=seed, train=False)
+        if cuda_graphs and not torch.cuda.is_available():
+            raise ConfigError("cuda_graphs=True needs a CUDA device, and none "
+                              "is available")
         self.env_factory = env
         self.n_episodes = n_episodes
         self.max_steps = max_steps
         self.base_seed = base_seed
+        self.cuda_graphs = cuda_graphs
+        # on the policy's device: the fixed tensors, the action generator
+        # and the graph of the select, made anew when the device changes
+        self._io: Optional[HostIO] = None
+        self._gen: Optional[torch.Generator] = None
+        self._graph: Optional[LoopGraph] = None
+
+    def _act(self, agent: Agent, agent_state, obs: np.ndarray,
+             graphs: bool) -> np.ndarray:
+        """One step's greedy actions on the host."""
+        io, gen = self._io, self._gen
+        obs_t = io.upload("obs", obs)
+
+        def select():
+            act = agent.select_action_eval(agent_state, obs_t, gen)
+            if "act" not in io.dev:
+                io.dev["act"] = act
+            else:
+                io.dev["act"].copy_(act)
+
+        if not graphs or "act" not in io.dev:
+            select()  # the first step also makes the fixed action tensor
+        else:
+            objects = (agent, agent_state, agent.policy_params(agent_state))
+            if self._graph is None or not self._graph.bound_to(objects):
+                self._graph = LoopGraph("host evaluation select", select,
+                                        [gen], objects)
+            self._graph.run(1)
+        return io.download(io.dev["act"])[0]
 
     @torch.no_grad()
     def evaluate(self, agent: Agent, agent_state, eval_index: int = 0
                  ) -> Tuple[float, Record]:
         dev = next(agent.policy_params(agent_state).parameters()).device
-        gen = torch.Generator(device=dev).manual_seed(
-            index_seed(self.base_seed, eval_index + 1))
+        graphs = resolve_cuda_graphs(self.cuda_graphs, dev, owner="HostEvaluator")
+        if self._io is None or self._io.device != dev:
+            self._io, self._gen, self._graph = HostIO(dev), None, None
+        self._gen = as_generator(index_seed(self.base_seed, eval_index + 1),
+                                 dev, into=self._gen)
         env = self.env_factory(self.n_episodes, self.base_seed + eval_index)
         returns = np.zeros(self.n_episodes, np.float64)
         running = np.ones(self.n_episodes, bool)
         try:
             obs = env.reset()
             for _ in range(self.max_steps):
-                act = agent.select_action_eval(
-                    agent_state, torch.as_tensor(obs, device=dev), gen)
-                obs, rew, term, trunc = env.step(act.cpu().numpy())
+                act = self._act(agent, agent_state, obs, graphs)
+                obs, rew, term, trunc = env.step(act)
                 returns += rew * running
                 running &= ~(term | trunc)
                 if not running.any():
@@ -137,6 +252,9 @@ class HostEnvTrainer:
     ``buffer``: the flat :class:`ReplayBuffer` (any obs), or
     :class:`FrameReplayBuffer` for uint8 stacked-frame envs (frame mode).
     ``device``: where the agent and the replay live; ``None`` is the GPU.
+    ``cuda_graphs``: replay the iteration's device step and update burst
+    as captured CUDA graphs (None: on a CUDA device; False: eagerly; True
+    on the CPU raises ``ConfigError``).
     """
 
     def __init__(
@@ -152,9 +270,13 @@ class HostEnvTrainer:
         checkpoint_manager=None,
         checkpoint_interval: int = 0,
         device: DeviceLike = None,
+        cuda_graphs: Optional[bool] = None,
     ):
         c = config
         self.device = resolve_device(device)
+        self.cuda_graphs = resolve_cuda_graphs(cuda_graphs, self.device,
+                                               owner="HostEnvTrainer")
+        self._graphs: Dict[str, LoopGraph] = {}
         if torch.device(buffer.device) != self.device:
             raise ValueError(f"buffer on {buffer.device}, trainer on {self.device}")
         Trainer._check_nstep_stride(buffer, c.num_envs)
@@ -189,33 +311,65 @@ class HostEnvTrainer:
             raise ValueError("FrameReplayBuffer needs [H, W, stack] uint8 host obs")
 
     # -- the device side of an iteration --------------------------------------
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
-
     def _select(self, agent_state, obs: torch.Tensor, gen: torch.Generator):
         return self.agent.select_action(agent_state, obs, gen)
 
-    def _push(self, agent_state, buf_state, prev_obs, act, prev_ep_len, step):
+    def _stage(self, io: HostIO, step, prev_ep_len: np.ndarray) -> None:
         """Upload one host step's results ``(obs, final_obs, reward,
-        terminated, truncated)``, push the transition that ``act`` made from
-        ``prev_obs`` through the buffer's own step processor and advance the
-        agent's env-step counters.  Returns the states and the device obs to
-        act on next: in frame mode the advanced stack ring, which takes only
-        the newest frame from the host."""
+        terminated, truncated)`` and the episode lengths before it into the
+        fixed tensors :meth:`_device_step` reads.  In frame mode only the
+        newest frame crosses to the device."""
         obs2, final_obs, rew, term, trunc = step
-        rew, term, trunc = map(self._upload, (rew, term, trunc))
         if self.frame_mode:
-            frame = self._upload(np.ascontiguousarray(obs2[..., -1]))
-            obs_dev = self._advance_stack(prev_obs, frame, term | trunc)
-            final_obs = None
+            io.upload("frame", obs2[..., -1])
         else:
-            obs_dev, final_obs = self._upload(obs2), self._upload(final_obs)
-        ts = Timestep(obs=None, final_obs=final_obs, reward=rew,
-                      terminated=term, truncated=trunc, info={})
-        buf_state = self.buffer.process_step(buf_state, prev_obs, act, ts,
-                                             self._upload(prev_ep_len))
+            io.upload("next_obs", obs2)
+            io.upload("final_obs", final_obs)
+        io.upload("reward", rew)
+        io.upload("terminated", term)
+        io.upload("truncated", trunc)
+        io.upload("prev_ep_len", prev_ep_len)
+
+    def _device_step(self, agent_state, buf_state, io: HostIO,
+                     act: torch.Tensor, gen: torch.Generator):
+        """Push the transition that ``act`` made from the device obs
+        ``io.dev["obs"]`` through the buffer's own step processor, advance
+        the agent's env-step counters, advance the device obs in place (in
+        frame mode the stack ring takes the newest frame; otherwise the
+        uploaded obs is copied in) and write the next actions into ``act``.
+        The push reads ``act`` and the obs before either is overwritten.
+        Returns the states."""
+        d = io.dev
+        term, trunc = d["terminated"], d["truncated"]
+        ts = Timestep(obs=None, final_obs=None if self.frame_mode else d["final_obs"],
+                      reward=d["reward"], terminated=term, truncated=trunc,
+                      info={})
+        buf_state = self.buffer.process_step(buf_state, d["obs"], act, ts,
+                                             d["prev_ep_len"])
         agent_state = self.agent.on_env_step(agent_state, self.config.num_envs)
-        return agent_state, buf_state, obs_dev
+        if self.frame_mode:
+            d["obs"].copy_(self._advance_stack(d["obs"], d["frame"], term | trunc))
+        else:
+            d["obs"].copy_(d["next_obs"])
+        act.copy_(self._select(agent_state, d["obs"], gen))
+        return agent_state, buf_state
+
+    def _device_step_run(self, agent_state, buf_state, io: HostIO,
+                         act: torch.Tensor, gen: torch.Generator) -> None:
+        """:meth:`_device_step`, eagerly or as a replay of its capture."""
+        if not self.cuda_graphs:
+            self._device_step(agent_state, buf_state, io, act, gen)
+            return
+        objects = (agent_state, buf_state, gen, io, act)
+        loop = self._graphs.get("device step")
+        if loop is None or not loop.bound_to(objects):
+            def step():
+                st, bs = self._device_step(agent_state, buf_state, io, act, gen)
+                _same_states(st, agent_state, bs, buf_state)
+
+            loop = self._graphs["device step"] = LoopGraph(
+                "host device step", step, [gen], objects)
+        loop.run(1)
 
     @staticmethod
     def _advance_stack(stack: torch.Tensor, frame: torch.Tensor,
@@ -227,8 +381,16 @@ class HostEnvTrainer:
         return torch.where(done[:, None, None, None], reset, rolled)
 
     def _update_burst(self, agent_state, buf_state, gen: torch.Generator, m: int):
-        return update_burst(self.agent, self.buffer, agent_state, buf_state,
-                            gen, self.config.batch_size, m)
+        """``m`` updates: replays of one captured update on the card
+        (:func:`graphed_updates`), else eagerly.  Returns the states and the
+        metrics' means on the device."""
+        if not self.cuda_graphs:
+            return update_burst(self.agent, self.buffer, agent_state, buf_state,
+                                gen, self.config.batch_size, m)
+        sums = graphed_updates(self._graphs, self.agent, self.buffer,
+                               agent_state, buf_state, gen,
+                               self.config.batch_size, m)
+        return agent_state, buf_state, {k: v / m for k, v in sums.items()}
 
     # -- orchestration ----------------------------------------------------------
     def train(self, seed: Optional[int] = None, resume_from=None) -> TrainResult:
@@ -278,22 +440,25 @@ class HostEnvTrainer:
             next_agent_info = int(ex["next_agent_info"])
 
         start_env_steps, start_opt_steps = env_steps, opt_steps
+        self._graphs = {}  # graphs of an earlier call hold other states
+        io = HostIO(dev)
         feeder = AsyncEnvFeeder(self.env, step_fn=self.env.step_final)
         t0 = time.perf_counter()
         try:
-            obs = self.env.reset()
-            # the device copy of the current obs; in frame mode the device
-            # stack ring, which only new frames update from here on
-            obs_dev = self._upload(obs)
+            # the device copy of the current obs, io.dev["obs"]; in frame
+            # mode the device stack ring, which only new frames update
+            # from here on
+            io.upload("obs", self.env.reset())
             ep_len = np.zeros(c.num_envs, np.int32)  # steps into each episode
             wait_time = 0.0
             t_window = t0
             window_steps = 0
 
-            # prime the pipeline: the first actions go out before the loop
-            act = self._select(agent_state, obs_dev, gen)
-            feeder.submit(act.cpu().numpy())
-            pending_obs, pending_act, pending_ep_len = obs_dev, act, ep_len
+            # prime the pipeline: the first actions go out before the loop;
+            # ``act`` is the fixed tensor every device step writes
+            act = self._select(agent_state, io.dev["obs"], gen)
+            feeder.submit(io.download(act)[0])
+            pending_ep_len = ep_len
 
             while opt_steps < c.max_opts:
                 # the update burst, queued while the host steps the envs
@@ -307,25 +472,31 @@ class HostEnvTrainer:
                     if m > 0:
                         agent_state, buf_state, metrics = self._update_burst(
                             agent_state, buf_state, gen, m)
-                        opt_steps = agent_state.n_opts
 
                 # collect the host step started last iteration
                 t_w = time.perf_counter()
                 step = feeder.collect()
                 wait_time += time.perf_counter() - t_w
 
-                # push (obs_t, act_t, …) and advance the device obs
-                agent_state, buf_state, obs_dev = self._push(
-                    agent_state, buf_state, pending_obs, pending_act,
-                    pending_ep_len, step)
+                # push (obs_t, act_t, …), advance the device obs, select
+                self._stage(io, step, pending_ep_len)
+                self._device_step_run(agent_state, buf_state, io, act, gen)
                 env_steps += c.num_envs
                 window_steps += c.num_envs
                 ep_len = np.where(step[3] | step[4], 0, ep_len + 1).astype(np.int32)
 
-                # the next actions → host (the iteration's one sync)
-                act = self._select(agent_state, obs_dev, gen)
-                feeder.submit(act.cpu().numpy())
-                pending_obs, pending_act, pending_ep_len = obs_dev, act, ep_len
+                # the next actions and the counters → host (the iteration's
+                # one sync); the host mirrors of the counters follow them
+                held = counts_of(agent_state, buf_state)
+                if held is None:
+                    a_np = io.download(act)[0]
+                else:
+                    a_np, values = io.download(act, held)
+                    set_mirrors((agent_state, buf_state), values)
+                feeder.submit(a_np)
+                pending_ep_len = ep_len
+                if warmed:
+                    opt_steps = agent_state.n_opts
 
                 # telemetry at chunk cadence
                 if window_steps >= c.steps_per_chunk * c.num_envs:

@@ -40,7 +40,12 @@ from border_tpu_torch.record.recorder import NullRecorder, Recorder
 from border_tpu_torch.replay.buffer import ReplayBuffer, Transition, map_obs
 from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
-from border_tpu_torch.train.graphs import LoopGraph, add_metrics_, copy_into
+from border_tpu_torch.train.graphs import (
+    LoopGraph,
+    add_metrics_,
+    copy_into,
+    resolve_cuda_graphs,
+)
 from border_tpu_torch.utils.counters import count, sync_counters
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -67,21 +72,6 @@ def _slice_batch(batch, lo: int, hi: int):
         else map_obs(lambda x: x[lo:hi], getattr(batch, f.name))
         for f in dataclasses.fields(batch)
     })
-
-
-def resolve_cuda_graphs(cuda_graphs: Optional[bool], device: torch.device,
-                        graphable: bool = True, owner: str = "Trainer") -> bool:
-    """The ``cuda_graphs`` switch of a trainer on ``device``: None means on
-    a CUDA device; True raises on the CPU and for a trainer whose chunk is
-    not graphable (``graphable``), which then runs eagerly."""
-    if cuda_graphs and device.type != "cuda":
-        raise ConfigError(f"cuda_graphs=True needs a CUDA device, not {device}")
-    if cuda_graphs and not graphable:
-        raise ConfigError(f"{owner} runs its chunk eagerly: cuda_graphs=True "
-                          f"is not available")
-    if cuda_graphs is None:
-        return graphable and device.type == "cuda"
-    return bool(cuda_graphs)
 
 
 def _add_metrics(sums: Dict[str, Any], metrics: Dict[str, Any]) -> None:
@@ -249,8 +239,9 @@ class Trainer:
         self._check_nstep_clip(agent, buffer)
         self._check_nstep_gamma(agent, buffer)
 
-    # subclasses whose chunk is not one program per device (collectives,
-    # actor states made per chunk) set this False: they run eagerly
+    # False where the chunk cannot be captured: GSPMDTrainer, whose
+    # collectives run outside any graph, and ShardedTrainer over gloo (set
+    # per instance from its group's backend); such a trainer runs eagerly
     graphable = True
 
     def _nstep_expected_stride(self) -> int:

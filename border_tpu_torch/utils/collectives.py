@@ -21,8 +21,13 @@ gloo and CUDA and CPU tensors alike:
   column-parallel layer's input feeds every rank's block, so its gradient
   is the sum of the blocks' contributions.
 
-``counts[(operation, group name)]`` counts the calls, per group; the tests
-read it to see which group an update talks to.  Groups are named by
+``counts[(operation, group name)]`` counts the collectives run, per group;
+the tests read it to see which group an update talks to.  A call on a
+stream that a CUDA graph is capturing runs nothing: it is counted in
+``captured``, and each replay of the graph adds what its capture recorded
+to ``counts`` (:mod:`border_tpu_torch.train.graphs`), so ``counts`` counts
+one a replay.  Under capture (NCCL only: gloo collectives cannot be
+captured) the sum's wire-dtype copies are captured with it.  Groups are named by
 :func:`register_group`, so a tensor can carry the name of its group
 (a string survives ``deepcopy`` where a process group does not).
 """
@@ -36,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 counts: collections.Counter = collections.Counter()
+captured: collections.Counter = collections.Counter()
 _GROUPS: Dict[str, "dist.ProcessGroup"] = {}
 # dtypes a sum travels in
 _WIRE = {torch.bool: torch.uint8, torch.bfloat16: torch.float32,
@@ -57,14 +63,20 @@ def _label(group) -> str:
     return (group or dist.group.WORLD).group_name
 
 
+def _count(t: torch.Tensor, op: str, group) -> None:
+    capturing = t.is_cuda and torch.cuda.is_current_stream_capturing()
+    (captured if capturing else counts)[op, _label(group)] += 1
+
+
 def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; returns ``t``."""
+    """Sum ``t`` over ``group`` in place; returns ``t``.  Synchronous (no
+    ``async_op``), so a CUDA graph can capture it under NCCL."""
     wire = _WIRE.get(t.dtype)
     buf = t if wire is None else t.to(wire)
     dist.all_reduce(buf, group=group)
     if buf is not t:
         t.copy_(buf)
-    counts["all_reduce", _label(group)] += 1
+    _count(t, "all_reduce", group)
     return t
 
 
@@ -77,7 +89,7 @@ def broadcast_(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` from the group's rank 0 on every rank, in place."""
     src = 0 if group is None else dist.get_global_rank(group, 0)
     dist.broadcast(t, src=src, group=group)
-    counts["broadcast", _label(group)] += 1
+    _count(t, "broadcast", group)
     return t
 
 

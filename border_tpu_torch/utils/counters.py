@@ -58,18 +58,31 @@ def set_counts(state, **values: int) -> None:
             [getattr(state, n) for n in type(state).COUNTERS]))
 
 
+def counts_of(*states) -> Optional[torch.Tensor]:
+    """The ``counts`` of ``states`` laid end to end (None where no state
+    holds any): what :func:`set_mirrors` reads back on the host."""
+    held = [s.counts for s in states if s is not None and s.counts is not None]
+    return torch.cat(held) if held else None
+
+
+def set_mirrors(states, values: Sequence[int]) -> None:
+    """The host ints of ``states`` set from ``values``, a host copy of
+    :func:`counts_of` the same states."""
+    i = 0
+    for s in states:
+        if s is None or s.counts is None:
+            continue
+        for name in type(s).COUNTERS:
+            setattr(s, name, int(values[i]))
+            i += 1
+
+
 def sync_counters(*states) -> None:
     """The host ints of ``states`` set from their ``counts``, one copy to
     the host for all of them (the mirrors after graph replays)."""
-    held = [s for s in states if s is not None and s.counts is not None]
-    if not held:
-        return
-    values = torch.cat([s.counts for s in held]).tolist()
-    i = 0
-    for s in held:
-        for name in type(s).COUNTERS:
-            setattr(s, name, values[i])
-            i += 1
+    held = counts_of(*states)
+    if held is not None:
+        set_mirrors(states, held.tolist())
 
 
 def linear_f32(n: Count, n_final: int, start: float, end: float):

@@ -25,13 +25,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def as_generator(seed_or_gen, device: torch.device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device``: an ``int`` seeds a new one, a
-    generator is passed through (it must live on ``device``)."""
+def as_generator(seed_or_gen, device: torch.device,
+                 into: Optional[torch.Generator] = None) -> torch.Generator:
+    """A ``torch.Generator`` on ``device``: an ``int`` seeds a new one, or
+    re-seeds ``into`` in place (a generator a CUDA graph holds keeps its
+    place); a generator is passed through (it must live on ``device``)."""
     if isinstance(seed_or_gen, torch.Generator):
         if seed_or_gen.device.type != torch.device(device).type:
             raise ValueError(
                 f"generator on {seed_or_gen.device}, expected {device}"
             )
         return seed_or_gen
-    return torch.Generator(device=device).manual_seed(int(seed_or_gen))
+    gen = torch.Generator(device=device) if into is None else into
+    return gen.manual_seed(int(seed_or_gen))

@@ -103,22 +103,34 @@ Phases, one line each (any failure exits non-zero with no result line):
     trainer resumed from it must restore the ring and the agent bitwise
     and go on (counters, replay, evaluation index) for 128 updates (1,024
     and 256 before phases 23-25 were added).  The
-    gather's launches must equal the updates.  Then the iteration's parts
-    timed apart and 16 pipelined iterations traced;
-19. the breakout_host config the same way: warmup and 256 updates;
+    gather's launches must equal the updates.  The trainer and its
+    HostEvaluator are graphed (the iteration's device step and update burst,
+    the evaluation's select, as CUDA-graph replays); the same run with
+    cuda_graphs=False from the same seeds must end bitwise equal (agent
+    state, ring, evaluations, launches).  Then the iteration's parts timed
+    apart and 8 pipelined iterations traced for the graphed trainer and
+    its eager twin in turns: the graphed one must make fewer host operator
+    calls an iteration;
+19. the breakout_host config the same way: warmup and 256 updates, the
+    eager twin and the breakdown;
 20. the pendulum_host config (SAC 128x128, auto entropy coefficient, 32
     envs, batch 128, 4 updates an iteration) over PyVecEnv and a numpy
     Pendulum with Gymnasium's equations (the card's machine has no
     gymnasium): the 1,000-step warmup, 512 updates and one evaluation of
-    the gate's 10 x 200 steps;
+    the gate's 10 x 200 steps, the eager twin and the breakdown;
 21. native CartPole through HostEnvTrainer at the JAX package's host-path
     learning test's config (DQN 64x64, 32 envs, 1,500 updates, evaluations
-    of 5 x 500 steps every 500): fails under a best score of 100;
-22. AsyncTrainer on Pong at bench.py's config with sync_interval 100: a
-    warmup chunk and two update chunks with a checkpoint after each; the
-    actor's parameters at every chunk's start must equal the learner's at
-    the last sync, bitwise, and a trainer resumed from the first checkpoint
-    must end bitwise equal (actor parameters included);
+    of 5 x 500 steps every 500), graphed: fails under a best score of 100;
+    its eager twin must end bitwise equal;
+22. AsyncTrainer on Pong at bench.py's config with sync_interval 100,
+    graphed (the actor's env steps and the learner's updates): a warmup
+    chunk and two update chunks with a checkpoint after each; the actor's
+    parameters at every chunk's start must equal the learner's at the last
+    sync, bitwise; its eager twin and a trainer resumed from the first
+    checkpoint must end bitwise equal (actor parameters included); then
+    the fused Trainer and both AsyncTrainers timed in turns and a dispatch
+    of each AsyncTrainer traced: the graphed one must make fewer host
+    operator calls;
 23. the utilities on the card: export_policy of a DQN-AtariCNN state at
     the main path's width and of an IQN state at the Seaquest path's,
     each run by NumpyMLPPolicy on 64 observations of its game: the numpy
@@ -131,7 +143,11 @@ Phases, one line each (any failure exits non-zero with no result line):
     loaded by convert.load_jax_policy into the port's bf16 AtariCNN and
     evaluated by the dqn_pong example's evaluator (10 episodes, 3,000
     steps): fails under a mean return of 18.0, the gate's Pong target;
-    then play_pong's main plays 512 steps into a GIF, read back;
+    the evaluation runs graphed (an env step replayed in blocks of 8) and
+    eagerly, with the same record, bitwise, and both times printed; a
+    16-step evaluation of each traced: the graphed one must make fewer host
+    operator calls a step; then play_pong's main plays 512 steps into a
+    GIF, read back;
 25. the examples through main(argv) at their default width: dqn_pong
     (--tensorboard, the 50,000-step warmup and one update chunk; the
     gather's launches must equal its updates), dqn_cartpole (an agent
@@ -145,9 +161,14 @@ Phases, one line each (any failure exits non-zero with no result line):
     the uniform path's config, one env chunk and one update chunk of 512
     updates from the plain Trainer's states and generator state: agent
     state, ring and loss must equal the plain Trainer's (whose chunk is
-    graphed; the sharded one is eager) bitwise; the sharded update chunk
-    timed once more; then one chunk of ShardedAsyncTrainer; (b) two ranks of this script on the one
-    card over gloo (NCCL takes one rank per GPU), the same global config
+    graphed) bitwise, for the sharded trainer graphed (its gradient
+    all-reduce captured in the update's graph) and for its eager twin
+    (cuda_graphs=False), whose all-reduces must count the same; 16 updates
+    of each twin traced: the graphed one must make fewer host operator
+    calls an update; the sharded update chunk timed once more; then one
+    chunk of ShardedAsyncTrainer (graphed); (b) two ranks of this script on
+    the one card over gloo (NCCL takes one rank per GPU; gloo collectives
+    cannot be captured, so these run eagerly), the same global config
     (512 envs and batch 256 a rank): one env chunk and 512 updates, the
     parameters bitwise equal across the ranks, the loss finite, the gather
     launched on both ranks; (c) GSPMDTrainer at dp=1, tp=2 on those two
@@ -1861,14 +1882,15 @@ def numpy_pendulum(n: int, seed: int):
     return PyVecEnv([NumpyPendulum] * n, seed=seed)
 
 
-def host_config(name: str, device, capacity=None, eval_steps=None, **cut):
+def host_config(name: str, device, capacity=None, eval_steps=None,
+                cuda_graphs=None, **cut):
     """The host-env learning-gate config ``name`` (benchmarks/learning.py:
     pong_host, breakout_host, pendulum_host) written with the port's
     classes: (env, agent, buffer, TrainerConfig, evaluator).  ``cut``
     replaces TrainerConfig fields (``num_envs`` cuts the width, the ring
     following it); ``capacity`` and ``eval_steps`` cut the ring's depth and
-    the evaluation's horizon.  pendulum_host's envs are
-    :class:`NumpyPendulum` behind ``PyVecEnv``."""
+    the evaluation's horizon; ``cuda_graphs`` is the evaluator's switch.
+    pendulum_host's envs are :class:`NumpyPendulum` behind ``PyVecEnv``."""
     from border_tpu_torch.agents import SAC, SACConfig
     from border_tpu_torch.replay import FrameReplayBuffer, ReplayBuffer
     from border_tpu_torch.train import HostEvaluator, TrainerConfig
@@ -1882,13 +1904,15 @@ def host_config(name: str, device, capacity=None, eval_steps=None, **cut):
         buffer = FrameReplayBuffer(capacity=capacity, num_envs=cfg.num_envs,
                                    device=device)
         return (env_id, _pixel_dqn(), buffer, cfg,
-                HostEvaluator(env_id, n_episodes=episodes, max_steps=steps))
+                HostEvaluator(env_id, n_episodes=episodes, max_steps=steps,
+                              cuda_graphs=cuda_graphs))
     agent = SAC(SACConfig(actor_hidden=(128, 128), critic_hidden=(128, 128),
                           n_critics=2, actor_lr=3e-4, critic_lr=3e-4,
                           ent_coef_mode="auto"))
     return (numpy_pendulum(cfg.num_envs, cfg.seed), agent,
             ReplayBuffer(capacity=capacity, device=device), cfg,
-            HostEvaluator(numpy_pendulum, n_episodes=episodes, max_steps=steps))
+            HostEvaluator(numpy_pendulum, n_episodes=episodes, max_steps=steps,
+                          cuda_graphs=cuda_graphs))
 
 
 class _IndexedEvaluator:
@@ -1910,25 +1934,45 @@ class _IndexedEvaluator:
 
 
 def _async_vs_fused(torch, tr, r) -> dict:
-    """The fused Trainer's chunk and AsyncTrainer's dispatch (syncing every
-    time) in turns, fused-async-async-fused-fused-async, from the run's
-    final state at its width with 4 env steps and 64 updates each:
-    seconds a turn, host clock ending in a device sync."""
+    """The fused Trainer's chunk, AsyncTrainer's dispatch (syncing every
+    time) and its eager twin (cuda_graphs=False) in turns,
+    fused-async-eager-eager-async-fused, from the run's final state at its
+    width with 4 env steps and 64 updates each: seconds a turn, host clock
+    ending in a device sync; then one dispatch of each AsyncTrainer traced
+    (after its captures): the graphed one must make fewer host operator
+    calls."""
     from border_tpu_torch.train import AsyncTrainer, Trainer
 
     short = tr.config.replace(steps_per_chunk=4, sync_interval=1)
     runs = {"fused": Trainer(tr.env, tr.agent, tr.buffer, short),
-            "async": AsyncTrainer(tr.env, tr.agent, tr.buffer, short)}
+            "async": AsyncTrainer(tr.env, tr.agent, tr.buffer, short),
+            "async_eager": AsyncTrainer(tr.env, tr.agent, tr.buffer, short,
+                                        cuda_graphs=False)}
     gen = torch.Generator(device=tr.device).manual_seed(4)
     ag, vec, buf = r.agent_state, tr.vec.reset(2), r.buffer_state
     out = {"updates_a_turn": runs["fused"].updates_per_chunk,
-           "fused_s": [], "async_s": []}
-    for which in ("fused", "async", "async", "fused", "fused", "async"):
+           "env_steps_a_turn": short.steps_per_chunk,
+           "fused_s": [], "async_s": [], "async_eager_s": []}
+
+    def dispatch(which):
+        nonlocal ag, vec, buf
+        ag, vec, buf, _, _, _ = runs[which]._dispatch(ag, vec, buf, gen, True)
+
+    for which in ("fused", "async", "async_eager", "async_eager", "async", "fused"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ag, vec, buf, _, _, _ = runs[which]._dispatch(ag, vec, buf, gen, True)
+        dispatch(which)
         torch.cuda.synchronize()
         out[f"{which}_s"].append(time.perf_counter() - t0)
+    for which in ("async", "async_eager"):
+        out[f"{which}_dispatch_trace"] = trace(torch, lambda: dispatch(which), 1)
+    g, e = out["async_dispatch_trace"], out["async_eager_dispatch_trace"]
+    if not g["host_ops_each"] < e["host_ops_each"]:
+        fail(f"async pong: a graphed dispatch makes {g['host_ops_each']} host "
+             f"operator calls, an eager one {e['host_ops_each']}")
+    print(f"host operator calls a dispatch (async pong, {short.steps_per_chunk} "
+          f"env steps and {out['updates_a_turn']} updates): graphed "
+          f"{g['host_ops_each']}, eager {e['host_ops_each']}", flush=True)
     return out
 
 
@@ -1981,67 +2025,134 @@ def _host_run(torch, label, tr, rec):
     return r, launches, numbers
 
 
-def host_breakdown(torch, tr, r, label: str, env, iters: int = 16,
+def _host_eager_twin(torch, label, tr, rec, r_graphed, numbers, ev=None,
+                     ev_graphed=None):
+    """``tr`` (the run's config with cuda_graphs=False, the same seeds) run
+    as the graphed run was: its final agent and replay state, updates, env
+    steps, gather launches and evaluation records must equal the graphed
+    run's; its numbers go into ``numbers["eager"]``."""
+    if tr.cuda_graphs:
+        fail(f"{label}: the eager twin is graphed")
+    r, launches, twin = _host_run(torch, f"{label} eager", tr, rec)
+    for part in ("agent_state", "buffer_state"):
+        bad = _state_diff(torch, getattr(r_graphed, part), getattr(r, part))
+        if bad:
+            fail(f"{label}: the eager twin's {part} differs from the graphed "
+                 f"run's in {bad[:8]}")
+    if ((r.opt_steps, r.env_steps, launches) != (
+            r_graphed.opt_steps, r_graphed.env_steps, numbers["gather_launches"])
+            or (ev is not None and ev.records != ev_graphed.records)):
+        fail(f"{label}: eager twin {r.opt_steps} updates, {r.env_steps} env "
+             f"steps, {launches} launches, evaluations "
+             f"{ev.records if ev else None}; graphed {r_graphed.opt_steps}, "
+             f"{r_graphed.env_steps}, {numbers['gather_launches']}, "
+             f"{ev_graphed.records if ev_graphed else None}")
+    numbers["eager"] = {k: twin[k] for k in (
+        "seconds", "env_steps_per_s_update_windows", "updates_per_s_update_windows",
+        "host_wait_frac_update_windows", "warmup_env_steps_per_s_median")}
+    if ev is not None:
+        numbers["eager"]["evaluator_s"] = ev.seconds
+    numbers["graphed_equals_eager_bitwise"] = True
+    return r
+
+
+def host_breakdown(torch, tr, r, label: str, make_env, iters: int = 16,
                    trace_iters: int = 8, pools=None) -> dict:
     """The parts of a host iteration timed apart from the run's final state
-    on a fresh host env (host clock, each part ending in a device sync):
-    the host env step, the upload + ingest + stack advance, the action
-    selection with its copy to the host, and the update burst (``iters``
-    each); then ``trace_iters`` iterations pipelined as the trainer runs
-    them, traced (:func:`trace`).  ``pools``: ``{label: make_env}``, host
-    envs whose pipelined iterations are timed (``iters`` each, untraced)."""
+    on fresh host envs (host clock, each part ending in a device sync), for
+    the graphed trainer ``tr`` and its eager twin (cuda_graphs=False) in
+    turns, graphed-eager-eager-graphed: the update burst, the host env step,
+    the upload of its results, the device step (push, stack, select) and
+    the download of the actions and counters (``iters`` each); then
+    ``trace_iters`` iterations of each twin pipelined as the trainer runs
+    them, traced (:func:`trace`): the graphed twin must make fewer host
+    operator calls an iteration.  ``make_env()``: a fresh host env.
+    ``pools``: ``{label: make_env}``, host envs whose pipelined graphed
+    iterations are timed (``iters`` each, untraced)."""
+    import copy
+
     import numpy as np
 
     from border_tpu_torch.envs.native import AsyncEnvFeeder
+    from border_tpu_torch.train.host import HostIO
+    from border_tpu_torch.utils.counters import counts_of, set_mirrors
 
+    if not tr.cuda_graphs:
+        fail(f"breakdown ({label}): the path's trainer is not graphed")
+    eager = copy.copy(tr)
+    eager.cuda_graphs, eager._graphs = False, {}
+    twins = {"graphed": tr, "eager": eager}
     gen = torch.Generator(device=tr.device).manual_seed(3)
     ag, buf = r.agent_state, r.buffer_state
     n = tr.config.num_envs
     m = max(1, round(n * tr.updates_per_transition))
-    parts = {"host_env_step_ms": [], "upload_ingest_stack_ms": [],
-             "select_sync_ms": [], "burst_ms": []}
+    io = {k: HostIO(tr.device) for k in twins}
+    acts = {}
 
-    def clock(key, fn):
+    def start(k, env):
+        """The twin's fixed obs from a reset, and its first actions."""
+        io[k].upload("obs", env.reset())
+        a = twins[k]._select(ag, io[k].dev["obs"], gen)
+        if k in acts:
+            acts[k].copy_(a)
+        else:
+            acts[k] = a
+        return np.zeros(n, np.int32)
+
+    def download(k):
+        a_np, values = io[k].download(acts[k], counts_of(ag, buf))
+        set_mirrors((ag, buf), values)
+        return a_np
+
+    parts = ("burst_ms", "host_env_step_ms", "upload_ms", "device_step_ms",
+             "download_ms")
+    out = {k: {p: [] for p in parts} for k in twins}
+
+    def clock(k, key, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn()
+        res = fn()
         torch.cuda.synchronize()
-        parts[key].append(1e3 * (time.perf_counter() - t0))
-        return out
+        out[k][key].append(1e3 * (time.perf_counter() - t0))
+        return res
 
-    def select():
-        act = tr._select(ag, obs_dev, gen)
-        return act, act.cpu().numpy()
-
-    obs_dev = tr._upload(env.reset())
-    ep_len = np.zeros(n, np.int32)
-    for _ in range(iters):
-        act, a_np = clock("select_sync_ms", select)
-        step = clock("host_env_step_ms", lambda: env.step_final(a_np))
-        ag, buf, obs_dev = clock("upload_ingest_stack_ms", lambda: tr._push(
-            ag, buf, obs_dev, act, ep_len, step))
-        ep_len = np.where(step[3] | step[4], 0, ep_len + 1).astype(np.int32)
-        ag, buf, _ = clock("burst_ms", lambda: tr._update_burst(ag, buf, gen, m))
-    out = {k: statistics.median(v) for k, v in parts.items()}
+    for k in ("graphed", "eager", "eager", "graphed"):
+        t = twins[k]
+        env = make_env()
+        ep_len = start(k, env)
+        a_np = download(k)
+        for _ in range(iters):
+            clock(k, "burst_ms", lambda: t._update_burst(ag, buf, gen, m))
+            step = clock(k, "host_env_step_ms", lambda: env.step_final(a_np))
+            clock(k, "upload_ms", lambda: t._stage(io[k], step, ep_len))
+            clock(k, "device_step_ms", lambda: t._device_step_run(
+                ag, buf, io[k], acts[k], gen))
+            a_np = clock(k, "download_ms", lambda: download(k))
+            ep_len = np.where(step[3] | step[4], 0, ep_len + 1).astype(np.int32)
+        env.close()
+    for k in twins:
+        for p in parts:
+            out[k][p] = statistics.median(out[k][p])
     out["burst_updates"] = m
 
-    def pipelined(env, count, run=None):
-        """``count`` iterations in the trainer's order; ``run`` wraps them
-        (the trace), else their wall time a iteration in ms."""
-        nonlocal ag, buf, obs_dev, ep_len
+    def pipelined(k, env, count, run=None):
+        """``count`` iterations of twin ``k`` in the trainer's order;
+        ``run`` wraps them (the trace), else their wall time an iteration
+        in ms."""
+        t = twins[k]
         feeder = AsyncEnvFeeder(env, step_fn=env.step_final)
-        act = tr._select(ag, obs_dev, gen)
-        feeder.submit(act.cpu().numpy())
+        ep_len = start(k, env)
+        feeder.submit(download(k))
 
         def loop():
-            nonlocal ag, buf, obs_dev, act, ep_len
+            nonlocal ep_len
             for _ in range(count):
-                ag, buf, _ = tr._update_burst(ag, buf, gen, m)
+                t._update_burst(ag, buf, gen, m)
                 step = feeder.collect()
-                ag, buf, obs_dev = tr._push(ag, buf, obs_dev, act, ep_len, step)
+                t._stage(io[k], step, ep_len)
+                t._device_step_run(ag, buf, io[k], acts[k], gen)
                 ep_len = np.where(step[3] | step[4], 0, ep_len + 1).astype(np.int32)
-                act = tr._select(ag, obs_dev, gen)
-                feeder.submit(act.cpu().numpy())
+                feeder.submit(download(k))
 
         try:
             if run is not None:
@@ -2055,16 +2166,21 @@ def host_breakdown(torch, tr, r, label: str, env, iters: int = 16,
             feeder.collect()
             feeder.close()  # closes the env
 
-    out["iteration_trace"] = pipelined(
-        env, trace_iters, run=lambda loop: trace(torch, loop, trace_iters))
-    for pool, make_env in (pools or {}).items():
-        pool_env = make_env()
-        obs_dev = tr._upload(pool_env.reset())
-        ep_len = np.zeros(n, np.int32)
-        out[f"pipelined_ms_per_iteration_{pool}"] = pipelined(pool_env, iters)
-    if not out["iteration_trace"]["device_busy_ms_each"] > 0:
+    for k in twins:
+        out[k]["iteration_trace"] = pipelined(
+            k, make_env(), trace_iters, run=lambda loop: trace(torch, loop, trace_iters))
+    g, e = out["graphed"]["iteration_trace"], out["eager"]["iteration_trace"]
+    if not g["host_ops_each"] < e["host_ops_each"]:
+        fail(f"breakdown ({label}): a graphed iteration makes {g['host_ops_each']} "
+             f"host operator calls, an eager one {e['host_ops_each']}")
+    for pool, make_pool in (pools or {}).items():
+        out["graphed"][f"pipelined_ms_per_iteration_{pool}"] = pipelined(
+            "graphed", make_pool(), iters)
+    if not g["device_busy_ms_each"] > 0:
         fail(f"{label}: the profiler saw no device time in the iteration trace")
     print(f"breakdown ({label}): " + json.dumps(out), flush=True)
+    print(f"host operator calls an iteration ({label}): graphed "
+          f"{g['host_ops_each']}, eager {e['host_ops_each']}", flush=True)
     return out
 
 
@@ -2110,6 +2226,18 @@ def pong_host_path(torch, dev) -> int:
             fail(f"{name}: evaluations {ev.indices} {ev.records}, checkpoints "
                  f"{mgr.all_steps()}")
         ckpt_gb = os.path.getsize(mgr._path(updates)) / 1e9
+
+        # -- the eager twin of the run, from the same seeds ----------------------
+        env_e, agent_e, buf_e, cfg_e, ev_e = host_config(
+            name, dev, eval_steps=PONG_HOST_EVAL_STEPS, max_opts=updates,
+            eval_interval=updates // 2, cuda_graphs=False)
+        ev_e = _IndexedEvaluator(ev_e, torch)
+        rec_e = _chunk_recorder()
+        _host_eager_twin(torch, name, HostEnvTrainer(
+            env_e, agent_e, buf_e, cfg_e, recorder=rec_e, evaluator=ev_e,
+            cuda_graphs=False), rec_e, r, numbers, ev_e, ev)
+        del env_e, agent_e, buf_e
+        _free(torch)
 
         # -- a second trainer resumed from the checkpoint ----------------------
         restore = mgr.restore
@@ -2172,7 +2300,8 @@ def pong_host_path(torch, dev) -> int:
                          ("all_cores_b", os.cpu_count()), ("default_b", None)):
             pools[label] = (lambda k=k: NativeVecEnv("Pong-v0", cfg.num_envs,
                                                      seed=2, n_threads=k))
-        host_breakdown(torch, tr, r, name, NativeVecEnv("Pong-v0", cfg.num_envs, seed=1),
+        host_breakdown(torch, tr, r, name,
+                       lambda: NativeVecEnv("Pong-v0", cfg.num_envs, seed=1),
                        pools=pools)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2196,6 +2325,13 @@ def breakout_host_path(torch, dev) -> int:
         fail(f"{name}: {launches} gather launches for {r.opt_steps} updates")
     if not (r.buffer_state.frames > 0).any():
         fail(f"{name}: the ring holds only black frames")
+    env_e, agent_e, buf_e, cfg_e, _ = host_config(name, dev, max_opts=updates)
+    rec_e = _chunk_recorder()
+    _host_eager_twin(torch, name, HostEnvTrainer(
+        env_e, agent_e, buf_e, cfg_e, recorder=rec_e, cuda_graphs=False),
+        rec_e, r, numbers)
+    del env_e, agent_e, buf_e
+    _free(torch)
     print(f"breakout_host path: HostEnvTrainer.train() Breakout-v0 (C++ envpool), "
           f"{cfg.num_envs} envs, batch {cfg.batch_size}, warmup "
           f"{cfg.warmup_period} env steps then {r.opt_steps} updates in "
@@ -2205,7 +2341,8 @@ def breakout_host_path(torch, dev) -> int:
           f"(median update window); frame_gather launches {launches} = updates",
           flush=True)
     print("breakout_host path numbers: " + json.dumps(numbers), flush=True)
-    host_breakdown(torch, tr, r, name, NativeVecEnv("Breakout-v0", cfg.num_envs, seed=1))
+    host_breakdown(torch, tr, r, name,
+                   lambda: NativeVecEnv("Breakout-v0", cfg.num_envs, seed=1))
     del tr, r
     _free(torch)
     return launches
@@ -2235,6 +2372,13 @@ def pendulum_host_path(torch, dev) -> None:
     score = ev.scores[0]
     if not (math.isfinite(score) and -200 * 16.3 <= score <= 0):
         fail(f"{name}: evaluation score {score}")
+    env_e, agent_e, buf_e, cfg_e, ev_e = host_config(
+        name, dev, max_opts=updates, eval_interval=updates, cuda_graphs=False)
+    ev_e = _IndexedEvaluator(ev_e, torch)
+    rec_e = _chunk_recorder()
+    _host_eager_twin(torch, name, HostEnvTrainer(
+        env_e, agent_e, buf_e, cfg_e, recorder=rec_e, evaluator=ev_e,
+        cuda_graphs=False), rec_e, r, numbers, ev_e, ev)
     numbers.update(eval_score=score, eval_record=ev.records[0],
                    evaluator_s=ev.seconds)
     print(f"pendulum_host path: HostEnvTrainer.train() over PyVecEnv of "
@@ -2245,39 +2389,58 @@ def pendulum_host_path(torch, dev) -> None:
           f"host_wait_frac {statistics.median(numbers['host_wait_frac_update_windows']):.3f} "
           f"(median update window); evaluation score {score:.1f}", flush=True)
     print("pendulum_host path numbers: " + json.dumps(numbers), flush=True)
-    host_breakdown(torch, tr, r, name, numpy_pendulum(cfg.num_envs, 1))
+    host_breakdown(torch, tr, r, name, lambda: numpy_pendulum(cfg.num_envs, 1))
 
 
 def host_cartpole_learns(torch, dev) -> None:
     """Phase 21: native CartPole through HostEnvTrainer at the JAX
-    package's host-path learning test config; fails under a best score of
-    HOST_CART_MIN_SCORE."""
+    package's host-path learning test config, graphed; fails under a best
+    score of HOST_CART_MIN_SCORE.  Then its eager twin from the same seeds
+    must end bitwise equal (agent and replay state, evaluations)."""
     from border_tpu_torch.agents import DQN, DQNConfig
     from border_tpu_torch.replay import ReplayBuffer
     from border_tpu_torch.train import HostEnvTrainer, HostEvaluator, TrainerConfig
 
-    agent = DQN(DQNConfig(hidden=(64, 64), lr=1e-3, tau=0.01,
-                          soft_update_interval=1, double_dqn=True,
-                          eps_final_step=20_000))
-    rec = _chunk_recorder()
-    tr = HostEnvTrainer("CartPole-v1", agent, ReplayBuffer(16_384),
-                        TrainerConfig(seed=0, **HOST_CART), recorder=rec,
-                        evaluator=HostEvaluator("CartPole-v1", n_episodes=5,
-                                                max_steps=500))
-    t0 = time.perf_counter()
-    r = tr.train()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    def build(graphs):
+        agent = DQN(DQNConfig(hidden=(64, 64), lr=1e-3, tau=0.01,
+                              soft_update_interval=1, double_dqn=True,
+                              eps_final_step=20_000))
+        rec = _chunk_recorder()
+        return HostEnvTrainer(
+            "CartPole-v1", agent, ReplayBuffer(16_384),
+            TrainerConfig(seed=0, **HOST_CART), recorder=rec,
+            evaluator=HostEvaluator("CartPole-v1", n_episodes=5, max_steps=500,
+                                    cuda_graphs=graphs),
+            cuda_graphs=graphs), rec
+
+    runs = {}
+    for graphs in (True, False):
+        tr, rec = build(graphs)
+        t0 = time.perf_counter()
+        r = tr.train()
+        torch.cuda.synchronize()
+        runs[graphs] = (r, time.perf_counter() - t0, rec)
+    (r, seconds, rec), (r_e, seconds_e, _) = runs[True], runs[False]
     waits = [c["host_wait_frac"] for c in rec.chunks]
     if r.opt_steps < HOST_CART["max_opts"] or len(r.eval_history) != 3:
         fail(f"host cartpole: {r.opt_steps} updates, evaluations {r.eval_history}")
+    for part in ("agent_state", "buffer_state"):
+        bad = _state_diff(torch, getattr(r, part), getattr(r_e, part))
+        if bad:
+            fail(f"host cartpole: the eager twin's {part} differs in {bad[:8]}")
+    if r_e.eval_history != r.eval_history or r_e.env_steps != r.env_steps:
+        fail(f"host cartpole: eager twin evaluations {r_e.eval_history}, "
+             f"graphed {r.eval_history}")
     result = {"updates": r.opt_steps, "env_steps": r.env_steps, "seconds": seconds,
               "eval_history": r.eval_history, "best_score": r.best_score,
               "host_wait_frac_median": statistics.median(waits),
-              "env_steps_per_s": r.samples_per_sec}
+              "env_steps_per_s": r.samples_per_sec,
+              "eager": {"seconds": seconds_e, "env_steps_per_s": r_e.samples_per_sec},
+              "graphed_equals_eager_bitwise": True}
     print(f"host cartpole learns: HostEnvTrainer.train() CartPole-v1 (C++ "
           f"envpool), {HOST_CART['num_envs']} envs, {r.opt_steps} updates in "
-          f"{seconds:.1f} s; evaluations {r.eval_history}, best "
+          f"{seconds:.1f} s graphed ({seconds_e:.1f} s eager, bitwise equal); "
+          f"evaluations {r.eval_history}, best "
           f"{r.best_score:.1f} (fails under {HOST_CART_MIN_SCORE:.0f})", flush=True)
     print("host cartpole learns numbers: " + json.dumps(result), flush=True)
     if r.best_score < HOST_CART_MIN_SCORE:
@@ -2327,13 +2490,13 @@ def async_pong_path(torch, dev) -> int:
                         batch_size=BATCH, opt_interval=OPT_INTERVAL,
                         warmup_period=0, max_opts=2 * upc)
 
-    def build(manager):
+    def build(manager, graphs=None):
         rec = _chunk_recorder()
         return CheckedAsync(
             make("Pong-v0"), _pixel_dqn(),
             FrameReplayBuffer(capacity=CAPACITY, num_envs=NUM_ENVS), cfg,
             recorder=rec, checkpoint_manager=manager,
-            checkpoint_interval=upc if manager else 0), rec
+            checkpoint_interval=upc if manager else 0, cuda_graphs=graphs), rec
 
     work = tempfile.mkdtemp(prefix="border_smoke_async_")
     try:
@@ -2361,6 +2524,28 @@ def async_pong_path(torch, dev) -> int:
         if not all(math.isfinite(c["loss"]) for c in chunks):
             fail(f"async pong: losses {[c['loss'] for c in chunks]}")
 
+        if not tr.cuda_graphs:
+            fail("async pong: the AsyncTrainer on the card is not graphed")
+
+        # the eager twin, from the same seeds: bitwise equal
+        tr_e, rec_e = build(None, graphs=False)
+        t0 = time.perf_counter()
+        r_e = tr_e.train(seed=0)
+        torch.cuda.synchronize()
+        seconds_e = time.perf_counter() - t0
+        for part, a, b in (("agent_state", r.agent_state, r_e.agent_state),
+                           ("buffer_state", r.buffer_state, r_e.buffer_state),
+                           ("actor_params", tr._actor_params, tr_e._actor_params)):
+            bad = _state_diff(torch, a, b)
+            if bad:
+                fail(f"async pong: the eager twin differs in {part}: {bad[:8]}")
+        chunks_e = [c for c in rec_e.chunks if "opt_steps_per_sec" in c]
+        eager = {"seconds": seconds_e,
+                 "env_steps_per_s_chunks": [c["samples_per_sec"] for c in chunks_e],
+                 "updates_per_s_chunks": [c["opt_steps_per_sec"] for c in chunks_e]}
+        del tr_e, r_e
+        _free(torch)
+
         os.makedirs(os.path.join(work, "killed"))
         os.rename(os.path.dirname(mgr._path(upc)), os.path.join(work, "killed", str(upc)))
         tr2, _ = build(None)
@@ -2385,6 +2570,7 @@ def async_pong_path(torch, dev) -> int:
             "updates_per_s_chunks": [c["opt_steps_per_sec"] for c in chunks],
             "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
             "max_memory_allocated_gb": peak_gb,
+            "eager": eager, "graphed_equals_eager_bitwise": True,
         }
         print(f"async pong path: AsyncTrainer.train() Pong, {NUM_ENVS} envs, batch "
               f"{BATCH}, {r.opt_steps} updates in 2 update chunks, syncs at "
@@ -2392,7 +2578,8 @@ def async_pong_path(torch, dev) -> int:
               f"{chunks[-1]['samples_per_sec']:.1f}, updates/s "
               f"{chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); the actor acted "
               f"on the last sync's parameters at every chunk; frame_gather "
-              f"launches {launches} = updates; a trainer resumed from step {upc} "
+              f"launches {launches} = updates; the eager twin ({seconds_e:.1f} s, "
+              f"graphed {seconds:.1f} s) and a trainer resumed from step {upc} "
               f"ended bitwise equal", flush=True)
         print("async pong path numbers: " + json.dumps(result), flush=True)
         del tr2, r2
@@ -2593,18 +2780,46 @@ def jax_pong_policy(torch, dev) -> None:
                          ev.vec.action_space)
     if st.params.dtype != torch.bfloat16 or not next(st.params.parameters()).is_cuda:
         fail("the loaded policy is not the port's bf16 AtariCNN on the card")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    score, rec = ev.evaluate(agent, st, eval_index=0)
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
-    record = dict(rec.items())
+    if not ev.cuda_graphs:
+        fail("the Pong evaluator on the card is not graphed")
+    ev_eager = Evaluator(make("Pong-v0", train=False), n_episodes=10,
+                         max_steps=3_000, cuda_graphs=False)
+    seconds, records = {}, {}
+    for which, e in (("graphed", ev), ("eager", ev_eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score, rec = e.evaluate(agent, st, eval_index=0)
+        torch.cuda.synchronize()
+        seconds[which] = time.perf_counter() - t0
+        records[which] = dict(rec.items())
+    record = records["graphed"]
+    score = record["Episode return"]
+    if records["eager"] != record:
+        fail(f"the graphed Pong evaluation {record} differs from the eager one "
+             f"{records['eager']}")
+    # host operator calls an evaluation step: 16-step evaluations, traced
+    # after their captures
+    ops = {}
+    for which, graphs in (("graphed", True), ("eager", False)):
+        short = Evaluator(make("Pong-v0", train=False), n_episodes=10,
+                          max_steps=16, cuda_graphs=graphs)
+        short.evaluate(agent, st)
+        ops[which] = trace(torch, lambda: short.evaluate(agent, st), 16)
+    if not ops["graphed"]["host_ops_each"] < ops["eager"]["host_ops_each"]:
+        fail(f"Pong evaluation: a graphed step makes "
+             f"{ops['graphed']['host_ops_each']} host operator calls, an eager "
+             f"one {ops['eager']['host_ops_each']}")
     print(f"JAX-trained Pong policy on the card (bf16 AtariCNN, load_jax_policy): "
-          f"mean return {score:.2f} over 10 episodes in {eval_s:.1f} s "
+          f"mean return {score:.2f} over 10 episodes in {seconds['graphed']:.2f} s "
+          f"graphed, {seconds['eager']:.2f} s eager, the records bitwise equal "
           f"(min {record['Episode return min']}, max "
           f"{record['Episode return max']}, length {record['Episode length']}); "
           f"the JAX run's final evaluations {jax_evals}; the gate's target "
           f"{PONG_TARGET}: " + json.dumps(record), flush=True)
+    print("Pong evaluation numbers: " + json.dumps(
+        {"seconds": seconds,
+         "host_ops_each_step": {k: v["host_ops_each"] for k, v in ops.items()},
+         "traces": ops}), flush=True)
     if not score >= PONG_TARGET:
         fail(f"the JAX-trained Pong policy scored {score} on the card, under "
              f"{PONG_TARGET}")
@@ -2828,6 +3043,8 @@ def sharded_world_of_one(torch, dev) -> dict:
                                            init_distributed, make_mesh)
     from border_tpu_torch.replay import FrameReplayBuffer
     from border_tpu_torch.train import Trainer
+    from border_tpu_torch.utils import collectives
+    from border_tpu_torch.utils.counters import sync_counters
 
     work = tempfile.mkdtemp(prefix="border_smoke_nccl_")
     init_distributed(f"file://{os.path.join(work, 'store')}", 1, 0)
@@ -2839,39 +3056,77 @@ def sharded_world_of_one(torch, dev) -> dict:
         plain = Trainer(env, _pixel_dqn(), FrameReplayBuffer(CAPACITY, NUM_ENVS), cfg)
         sharded = ShardedTrainer(env, _pixel_dqn(), FrameReplayBuffer(CAPACITY, NUM_ENVS),
                                  cfg, mesh=mesh)
+        sharded_eager = ShardedTrainer(
+            env, _pixel_dqn(), FrameReplayBuffer(CAPACITY, NUM_ENVS), cfg, mesh=mesh,
+            cuda_graphs=False)
+        if not (plain.cuda_graphs and sharded.cuda_graphs) or sharded_eager.cuda_graphs:
+            fail("sharded (a): the plain and the NCCL trainer must be graphed")
         agent_state, vec_state, buf_state = plain.init_states(0, 1)
-        states = {"plain": [agent_state, vec_state, buf_state],
-                  "sharded": [copy.deepcopy(agent_state), sharded.vec.reset(1),
-                              sharded.buffer.init()]}
-        out, launches = {}, 0
-        for name, tr in (("plain", plain), ("sharded", sharded)):
+        states = {"plain": [agent_state, vec_state, buf_state]}
+        for name, tr in (("sharded", sharded), ("sharded_eager", sharded_eager)):
+            states[name] = [copy.deepcopy(agent_state), tr.vec.reset(1),
+                            tr.buffer.init()]
+        out, launches, reduces = {}, {}, {}
+        for name, tr in (("plain", plain), ("sharded", sharded),
+                         ("sharded_eager", sharded_eager)):
             st = states[name]
             gen = torch.Generator(device=dev).manual_seed(7)
             st[:] = tr._chunk(*st, gen, False)[:3]
             torch.cuda.synchronize()
             frame_gather.gather_frames.launches = 0
+            collectives.counts.clear()
             t0 = time.perf_counter()
             *chunk, metrics, _, _ = tr._chunk(*st, gen, True)
             st[:] = chunk
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            if name == "sharded":
-                launches = frame_gather.gather_frames.launches
+            launches[name] = frame_gather.gather_frames.launches
+            reduces[name] = sum(v for (op, _), v in collectives.counts.items()
+                                if op == "all_reduce")
             out[name] = {"updates_per_s": tr.updates_per_chunk / dt,
                          "loss": _loss_of(metrics), "gen": gen,
                          "graphed": tr.cuda_graphs}
         n_upd = sharded.updates_per_chunk
-        if launches != n_upd or not math.isfinite(out["sharded"]["loss"]):
-            fail(f"sharded (a): {launches} gather launches for {n_upd} updates, "
+        if (set(launches.values()) != {n_upd}
+                or not math.isfinite(out["sharded"]["loss"])):
+            fail(f"sharded (a): gather launches {launches} for {n_upd} updates, "
                  f"loss {out['sharded']['loss']}")
-        for part, i in (("agent state", 0), ("ring", 2)):
-            bad = _state_diff(torch, states["plain"][i], states["sharded"][i])
-            if bad:
-                fail(f"sharded (a): the world-of-one {part} differs from the "
-                     f"plain Trainer's in {bad[:8]}")
-        if out["plain"]["loss"] != out["sharded"]["loss"]:
-            fail(f"sharded (a): loss {out['sharded']['loss']} != the plain "
-                 f"Trainer's {out['plain']['loss']}")
+        # the update's gradient all-reduce counts one a replay, as eagerly
+        if reduces["sharded"] != reduces["sharded_eager"] or reduces["sharded"] <= n_upd:
+            fail(f"sharded (a): all-reduces graphed {reduces['sharded']}, eager "
+                 f"{reduces['sharded_eager']} for {n_upd} updates")
+        for name in ("sharded", "sharded_eager"):
+            for part, i in (("agent state", 0), ("ring", 2)):
+                bad = _state_diff(torch, states["plain"][i], states[name][i])
+                if bad:
+                    fail(f"sharded (a): the world-of-one {part} ({name}) differs "
+                         f"from the plain Trainer's in {bad[:8]}")
+            if out["plain"]["loss"] != out[name]["loss"]:
+                fail(f"sharded (a): loss {out[name]['loss']} ({name}) != the "
+                     f"plain Trainer's {out['plain']['loss']}")
+
+        # host operator calls an update: 16 updates of each sharded twin,
+        # traced after their captures, from the compared states
+        ops = {}
+        for name, tr in (("sharded", sharded), ("sharded_eager", sharded_eager)):
+            tt = copy.copy(tr)
+            tt.updates_per_chunk = 16
+            a, _, b = states[name]
+            gen_t = out[name]["gen"]
+            tt._update_scan(a, b, gen_t)
+            ops[name] = trace(torch, lambda: tt._update_scan(a, b, gen_t), 16)
+        if not ops["sharded"]["host_ops_each"] < ops["sharded_eager"]["host_ops_each"]:
+            fail(f"sharded (a): a graphed update makes "
+                 f"{ops['sharded']['host_ops_each']} host operator calls, an "
+                 f"eager one {ops['sharded_eager']['host_ops_each']}")
+        # the host mirrors of the counters the replays advanced
+        sync_counters(states["sharded"][0], states["sharded"][2])
+        print(f"host operator calls an update (sharded (a), NCCL world of one): "
+              f"graphed {ops['sharded']['host_ops_each']}, eager "
+              f"{ops['sharded_eager']['host_ops_each']}", flush=True)
+        del sharded_eager
+        states.pop("sharded_eager")
+        _free(torch)
 
         # the sharded update chunk again, its first-time costs paid (its
         # states go on from the compared ones, which were checked above)
@@ -2899,19 +3154,24 @@ def sharded_world_of_one(torch, dev) -> dict:
             fail(f"sharded (a): the ShardedAsyncTrainer chunk ran {a.n_opts - n0} "
                  f"updates with {async_launches} gather launches")
         result = {"updates": n_upd, "updates_per_s_sharded": out["sharded"]["updates_per_s"],
+                  "updates_per_s_sharded_eager": out["sharded_eager"]["updates_per_s"],
                   "updates_per_s_plain": out["plain"]["updates_per_s"],
+                  "all_reduces_update_chunk": reduces["sharded"],
+                  "host_ops_each_update": {k: v["host_ops_each"] for k, v in ops.items()},
+                  "update_traces": ops,
                   "plain_graphed": out["plain"]["graphed"],
                   "sharded_update_chunk_again_updates_per_s": again,
-                  "loss": out["sharded"]["loss"], "gather_launches": launches,
+                  "loss": out["sharded"]["loss"], "gather_launches": launches["sharded"],
                   "async_chunk_s": dt_async, "async_gather_launches": async_launches,
                   "async_loss": _loss_of(metrics)}
         print(f"sharded (a): ShardedTrainer, a world of one over NCCL, Pong "
               f"{NUM_ENVS} envs, batch {BATCH}: one env chunk and {n_upd} updates "
-              f"bitwise equal to the plain Trainer (agent state, ring, loss); "
-              f"updates/s {result['updates_per_s_sharded']:.2f} (plain "
+              f"bitwise equal to the plain Trainer (agent state, ring, loss), "
+              f"graphed and eager; updates/s {result['updates_per_s_sharded']:.2f} "
+              f"graphed, {result['updates_per_s_sharded_eager']:.2f} eager (plain "
               f"{result['updates_per_s_plain']:.2f}); then a ShardedAsyncTrainer "
               f"chunk in {dt_async:.2f} s, loss {result['async_loss']:.6g}", flush=True)
-        return {**result, "launches_total": launches + async_launches}
+        return {**result, "launches_total": sum(launches.values()) + async_launches}
     finally:
         dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)

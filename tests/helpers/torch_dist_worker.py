@@ -270,6 +270,30 @@ def task_sharded_chunk(rank, world, args):
     return out
 
 
+def task_graphable(rank, world, args):
+    """Whether ShardedTrainer and ShardedAsyncTrainer graph their chunk
+    over this group's backend: ``graphable``, the resolved ``cuda_graphs``
+    and whether ``cuda_graphs=True`` raises ``ConfigError``."""
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.errors import ConfigError
+    from border_tpu_torch.parallel import ShardedAsyncTrainer, ShardedTrainer
+
+    cfg = _cartpole_cfg(world)
+    out = {}
+    for cls in (ShardedTrainer, ShardedAsyncTrainer):
+        tr = cls(make("CartPole-v1"), _agent("dqn"), _buffer("dqn", cfg), cfg,
+                 device="cpu")
+        out[f"{cls.__name__}/graphable"] = tr.graphable
+        out[f"{cls.__name__}/cuda_graphs"] = tr.cuda_graphs
+        try:
+            cls(make("CartPole-v1"), _agent("dqn"), _buffer("dqn", cfg), cfg,
+                device="cpu", cuda_graphs=True)
+            out[f"{cls.__name__}/true_raises"] = False
+        except ConfigError:
+            out[f"{cls.__name__}/true_raises"] = True
+    return out
+
+
 def _gspmd_cfg(**kw):
     from border_tpu_torch.train import TrainerConfig
 
@@ -371,6 +395,7 @@ def task_gspmd_parts(rank, world, args):
 
 
 TASKS = {"dp_update": task_dp_update, "sharded_train": task_sharded_train,
+         "graphable": task_graphable,
          "sharded_chunk": task_sharded_chunk, "gspmd_train": task_gspmd_train,
          "gspmd_parts": task_gspmd_parts}
 

@@ -4,7 +4,10 @@ envs and the Reacher, and the DQN, IQN, SAC, AWAC and IQL updates on the
 card against the CPU path; a small prioritized train-checkpoint-resume on
 the card; the graphed chunk (CUDA-graph replays) against the eager one,
 bitwise, on every graphed path, a graphed run resumed from a checkpoint,
-and a body that cannot be captured.  They skip without a CUDA device.
+and a body that cannot be captured; the same for the host-env trainer in
+frame and flat mode, both evaluators, the async actor-learner (a sync and
+a resume) and a world of one ShardedTrainer over NCCL.  They skip without
+a CUDA device.
 
 This file imports no JAX, so on a machine without it (the GPU machine) it
 runs without the repo's JAX test harness:
@@ -12,6 +15,7 @@ runs without the repo's JAX test harness:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -541,7 +545,10 @@ def test_host_pong_device_ring_equals_the_host_obs_on_card():
     agent = DQN(DQNConfig(model=lambda a: AtariCNN(a), lr=1e-4))
     cfg = TrainerConfig(max_opts=2, warmup_period=35 * n, opt_interval=n // 2,
                         batch_size=8, num_envs=n, steps_per_chunk=8, seed=0)
-    tr = HostEnvTrainer(env, agent, FrameReplayBuffer(64, n), cfg)
+    # eager: the wrapped select reads each obs to the host, which a graph
+    # cannot capture (the graphed twin is held to this one bitwise below)
+    tr = HostEnvTrainer(env, agent, FrameReplayBuffer(64, n), cfg,
+                        cuda_graphs=False)
     seen = []
     select = tr._select
     tr._select = lambda a, obs, g: (seen.append(obs.cpu()), select(a, obs, g))[1]
@@ -572,7 +579,9 @@ def test_async_trainer_actor_keeps_its_snapshot_on_card():
     cfg = TrainerConfig(max_opts=24, warmup_period=64, opt_interval=16,
                         batch_size=16, num_envs=8, steps_per_chunk=8, seed=3,
                         sync_interval=10**9)
-    tr = AsyncTrainer(make("CartPole-v1"), agent, ReplayBuffer(512), cfg)
+    # eager: the wrapped select records every step's state on the host
+    tr = AsyncTrainer(make("CartPole-v1"), agent, ReplayBuffer(512), cfg,
+                      cuda_graphs=False)
     initial = agent.init(3, tr.vec.observation_space, tr.vec.action_space).params
     acted = []
     select = agent.select_action
@@ -935,3 +944,342 @@ def test_uncapturable_update_raises_and_does_not_fall_back():
         tr._chunk(ag, vec, buf, gen, True)
     # the eager warm-up ran; the rest of the chunk did not, eagerly or not
     assert int(ag.counts[0]) == WARMUP < tr.updates_per_chunk
+
+
+# -- CUDA graphs: the host path, the evaluators, async, sharded ----------------
+
+def _recording_native(n, env_id, seed):
+    """A C++ env pool that keeps a copy of every action it is handed."""
+    from border_tpu_torch.envs.native import NativeVecEnv
+
+    class Recording(NativeVecEnv):
+        acts: list
+
+        def step_final(self, actions):
+            self.acts.append(np.array(actions))
+            return super().step_final(actions)
+
+    env = Recording(env_id, n, seed=seed)
+    env.acts = []
+    return env
+
+
+def _host_twins(build):
+    """``build(graphs)`` → (trainer, recording env); both twins' train():
+    final states, actions, counters, evaluations and the gather's launches
+    equal, bitwise.  Returns the graphed trainer and its result."""
+    out = {}
+    for graphs in (True, False):
+        tr, env = build(graphs)
+        assert tr.cuda_graphs is graphs
+        launches = frame_gather.gather_frames.launches
+        r = tr.train()
+        torch.cuda.synchronize()
+        out[graphs] = (r, env.acts, frame_gather.gather_frames.launches - launches, tr)
+    (g, g_acts, g_l, g_tr), (e, e_acts, e_l, _) = out[True], out[False]
+    _assert_bitwise((g.agent_state, g.buffer_state), (e.agent_state, e.buffer_state))
+    assert len(g_acts) == len(e_acts) > 0
+    for i, (a, b) in enumerate(zip(g_acts, e_acts)):
+        np.testing.assert_array_equal(a, b, err_msg=f"step {i}")
+    assert (g.opt_steps, g.env_steps, g.eval_history) == (
+        e.opt_steps, e.env_steps, e.eval_history)
+    assert g_l == e_l
+    assert {"device step", "update"} <= set(g_tr._graphs) and all(
+        loop.graph is not None for loop in g_tr._graphs.values())
+    return g_tr, g, g_l
+
+
+@pytest.mark.cuda
+def test_graphed_host_pong_frame_mode_equals_eager_bitwise():
+    """HostEnvTrainer over 8 C++ Pong envs in frame mode (the device stack
+    ring): the warmup, 24 updates two an iteration with a hard target sync
+    every 4, and two HostEvaluator evaluations, graphed against eager."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import HostEnvTrainer, HostEvaluator, TrainerConfig
+
+    _cuda()
+    n = 8
+
+    def build(graphs):
+        env = _recording_native(n, "Pong-v0", 1)
+        agent = DQN(DQNConfig(model=lambda a: AtariCNN(a), lr=1e-3,
+                              double_dqn=True, soft_update_interval=4, tau=1.0,
+                              eps_final_step=2_000))
+        cfg = TrainerConfig(max_opts=24, warmup_period=35 * n, opt_interval=n // 2,
+                            batch_size=8, num_envs=n, steps_per_chunk=8,
+                            eval_interval=12, seed=0)
+        ev = HostEvaluator("Pong-v0", n_episodes=2, max_steps=40,
+                           cuda_graphs=graphs)
+        return HostEnvTrainer(env, agent, FrameReplayBuffer(64, n), cfg,
+                              evaluator=ev, cuda_graphs=graphs), env
+
+    tr, r, launches = _host_twins(build)
+    assert r.opt_steps == 24 and launches == 24 and len(r.eval_history) == 2
+    assert r.buffer_state.total == r.buffer_state.counts[0].item() > 40
+
+
+@pytest.mark.cuda
+def test_graphed_host_cartpole_flat_mode_equals_eager_bitwise():
+    """HostEnvTrainer over 16 C++ CartPole envs through the flat ring (the
+    obs and the final obs uploaded, the obs copied inside the graph)."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import HostEnvTrainer, HostEvaluator, TrainerConfig
+
+    _cuda()
+    n = 16
+
+    def build(graphs):
+        env = _recording_native(n, "CartPole-v1", 2)
+        agent = DQN(DQNConfig(hidden=(64, 64), lr=1e-3, soft_update_interval=5,
+                              tau=1.0, eps_final_step=500))
+        cfg = TrainerConfig(max_opts=40, warmup_period=128, opt_interval=8,
+                            batch_size=32, num_envs=n, steps_per_chunk=8,
+                            eval_interval=20, seed=1)
+        ev = HostEvaluator("CartPole-v1", n_episodes=4, max_steps=100,
+                           cuda_graphs=graphs)
+        return HostEnvTrainer(env, agent, ReplayBuffer(2048), cfg, evaluator=ev,
+                              cuda_graphs=graphs), env
+
+    tr, r, _ = _host_twins(build)
+    assert r.opt_steps == 40 and r.buffer_state.size == r.env_steps
+
+
+def _eval_records(ev, agent, st, indices):
+    out = []
+    for i in indices:
+        _, rec = ev.evaluate(agent, st, eval_index=i)
+        out.append(dict(rec.items()))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id, max_steps", [("Pong-v0", 61),
+                                               ("CartPole-v1", 500)])
+def test_graphed_evaluator_equals_eager_bitwise(env_id, max_steps):
+    """Evaluator graphed (blocks of 8 replays, the last one shorter) and
+    eager: evaluations 0, 1, 0 give the same records, and the same as a
+    fresh evaluator's.  Pong runs into a cap that is not a multiple of 8;
+    CartPole's episodes all end well before theirs (the early exit)."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.train import Evaluator
+
+    _cuda()
+    pong = env_id == "Pong-v0"
+    agent = DQN(DQNConfig(model=lambda a: AtariCNN(a)) if pong
+                else DQNConfig(hidden=(32,)))
+    evs = {g: Evaluator(make(env_id, **({"train": False} if pong else {})),
+                        n_episodes=6, max_steps=max_steps, cuda_graphs=g)
+           for g in (True, False)}
+    st = agent.init(0, evs[True].vec.observation_space, evs[True].vec.action_space)
+    got = {g: _eval_records(ev, agent, st, (0, 1, 0)) for g, ev in evs.items()}
+    assert got[True] == got[False]
+    assert got[True][0] == got[True][2] != got[True][1]
+    fresh = Evaluator(make(env_id, **({"train": False} if pong else {})),
+                      n_episodes=6, max_steps=max_steps)
+    assert _eval_records(fresh, agent, st, (1,)) == [got[True][1]]
+    assert evs[True]._graph.graph is not None
+    if pong:
+        assert got[True][0]["Episodes truncated"] == 6
+    else:
+        assert got[True][0]["Episodes truncated"] == 0
+        assert max(r["Episode length"] for r in got[True]) < max_steps - 8
+
+
+@pytest.mark.cuda
+def test_graphed_host_evaluator_equals_eager_bitwise():
+    """HostEvaluator on C++ Pong: the select replayed per step against the
+    eager select, evaluations 0, 1, 0."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.core import spaces
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.train import HostEvaluator
+
+    _cuda()
+    agent = DQN(DQNConfig(model=lambda a: AtariCNN(a)))
+    st = agent.init(0, spaces.Box(0, 255, (84, 84, 4), torch.uint8),
+                    spaces.Discrete(6))
+    evs = {g: HostEvaluator("Pong-v0", n_episodes=3, max_steps=45, cuda_graphs=g)
+           for g in (True, False)}
+    got = {g: _eval_records(ev, agent, st, (0, 1, 0)) for g, ev in evs.items()}
+    assert got[True] == got[False] and got[True][0] == got[True][2]
+    assert evs[True]._graph.graph is not None
+
+
+@pytest.mark.cuda
+def test_graphed_async_trainer_equals_eager_and_resumes_bitwise(tmp_path):
+    """AsyncTrainer on Pong: three update chunks with a policy sync after
+    the second, graphed against eager (agent, ring, actor copy), then a
+    graphed trainer resumed from the checkpoint after the second chunk
+    against the uninterrupted graphed run."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import AsyncTrainer, TrainerConfig
+    from border_tpu_torch.utils import CheckpointManager
+
+    _cuda()
+
+    def build(graphs, max_opts=96, manager=None):
+        agent = DQN(DQNConfig(model=lambda n: AtariCNN(n), lr=1e-3,
+                              soft_update_interval=20, tau=1.0,
+                              eps_final_step=2_000))
+        cfg = TrainerConfig(num_envs=64, steps_per_chunk=8, batch_size=32,
+                            opt_interval=16, warmup_period=0, max_opts=max_opts,
+                            sync_interval=40, seed=0)
+        return AsyncTrainer(make("Pong-v0"), agent, FrameReplayBuffer(64, 64), cfg,
+                            checkpoint_manager=manager,
+                            checkpoint_interval=64 if manager else 0,
+                            cuda_graphs=graphs)
+
+    out = {}
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
+    for graphs in (True, False):
+        tr = build(graphs, manager=mgr if graphs else None)
+        launches = frame_gather.gather_frames.launches
+        r = tr.train(seed=0)
+        torch.cuda.synchronize()
+        out[graphs] = (r, tr, frame_gather.gather_frames.launches - launches)
+    (g, g_tr, g_l), (e, e_tr, e_l) = out[True], out[False]
+    assert g.opt_steps == 96 and g_l == e_l == 96 and g_tr._last_sync == 64
+    _assert_bitwise((g.agent_state, g.buffer_state, g_tr._actor_params),
+                    (e.agent_state, e.buffer_state, e_tr._actor_params))
+    assert g_tr._graphs and all(loop.graph is not None
+                                for loop in g_tr._graphs.values())
+    assert mgr.all_steps() == [64]
+    res = build(True)
+    got = res.train(seed=0, resume_from=mgr)
+    assert got.opt_steps == 96
+    _assert_bitwise((got.agent_state, got.buffer_state, res._actor_params),
+                    (g.agent_state, g.buffer_state, g_tr._actor_params))
+
+
+_NCCL_WORLD_OF_ONE = r"""
+import copy, os, sys, tempfile
+import torch
+from border_tpu_torch.agents import DQN, DQNConfig
+from border_tpu_torch.envs import make
+from border_tpu_torch.models import AtariCNN
+from border_tpu_torch.ops import frame_gather
+from border_tpu_torch.parallel import ShardedTrainer, init_distributed, make_mesh
+from border_tpu_torch.replay import FrameReplayBuffer
+from border_tpu_torch.train import Trainer, TrainerConfig
+from border_tpu_torch.utils import collectives
+from border_tpu_torch.utils.checkpoint import pack_state
+
+init_distributed("file://" + os.path.join(tempfile.mkdtemp(), "store"), 1, 0)
+assert torch.distributed.get_backend() == "nccl"
+cfg = TrainerConfig(num_envs=64, steps_per_chunk=8, batch_size=32,
+                    opt_interval=16, warmup_period=0)
+agent = lambda: DQN(DQNConfig(model=lambda n: AtariCNN(n), lr=1e-3,
+                              soft_update_interval=20, tau=1.0))
+env, mesh = make("Pong-v0"), make_mesh()
+trs = {"plain": Trainer(env, agent(), FrameReplayBuffer(64, 64), cfg),
+       "sharded": ShardedTrainer(env, agent(), FrameReplayBuffer(64, 64), cfg,
+                                 mesh=mesh),
+       "sharded_eager": ShardedTrainer(env, agent(), FrameReplayBuffer(64, 64),
+                                       cfg, mesh=mesh, cuda_graphs=False)}
+assert [t.cuda_graphs for t in trs.values()] == [True, True, False]
+ag, vec, buf = trs["plain"].init_states(0, 1)
+out = {}
+for name, tr in trs.items():
+    st = [copy.deepcopy(ag), tr.vec.reset(1), tr.buffer.init()]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    st[:] = tr._chunk(*st, gen, False)[:3]
+    collectives.counts.clear()
+    launches = frame_gather.gather_frames.launches
+    losses = []
+    for _ in range(3):
+        *chunk, metrics, _, _ = tr._chunk(*st, gen, True)
+        st[:] = chunk
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    out[name] = (st, losses, frame_gather.gather_frames.launches - launches,
+                 dict(collectives.counts), gen.get_state())
+m = 3 * trs["sharded"].updates_per_chunk
+want = out["plain"]
+for name in ("sharded", "sharded_eager"):
+    st, losses, launches, counts, gen = out[name]
+    assert losses == want[1], (name, losses, want[1])
+    assert launches == m, (name, launches)
+    assert torch.equal(gen, want[4]), name
+    for i in (0, 2):
+        a, b = pack_state(st[i]), pack_state(want[0][i])
+        def walk(x, y, path):
+            if isinstance(x, dict):
+                assert x.keys() == y.keys(), path
+                for k in x:
+                    walk(x[k], y[k], path + "/" + str(k))
+            elif torch.is_tensor(x):
+                assert x.dtype == y.dtype and torch.equal(x, y), (name, path)
+            else:
+                assert x == y, (name, path)
+        walk(a, b, str(i))
+# the gradient all-reduces count one a replay, as eagerly: one per update
+# and gradient dtype, besides each chunk's episode sums and metric mean
+assert out["sharded"][3] == out["sharded_eager"][3], (out["sharded"][3],
+                                                      out["sharded_eager"][3])
+grads = sum(v for (op, _), v in out["sharded"][3].items() if op == "all_reduce")
+assert grads > 2 * 3 and (grads - 2 * 3) % m == 0, out["sharded"][3]
+assert trs["sharded"]._graphs["update"].collectives_each
+torch.distributed.destroy_process_group()
+print("NCCL_WORLD_OF_ONE_OK")
+"""
+
+
+@pytest.mark.cuda
+def test_graphed_nccl_world_of_one_equals_eager_and_the_trainer_bitwise():
+    """ShardedTrainer, a world of one over NCCL in a subprocess: three
+    graphed update chunks (the gradient all-reduce captured in the update's
+    graph) against the same world eager and against the graphed Trainer,
+    bitwise; the all-reduces count one a replay."""
+    import os
+    import subprocess
+    import sys
+
+    _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", _NCCL_WORLD_OF_ONE], cwd=root,
+                       env={**os.environ, "PYTHONPATH": root},
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0 and "NCCL_WORLD_OF_ONE_OK" in p.stdout, p.stderr[-4000:]
+
+
+@pytest.mark.cuda
+def test_uncapturable_host_step_and_evaluation_raise():
+    """A select that reads a device value on the host, in the host path's
+    device step and in the Evaluator's step: GraphCaptureError naming the
+    operator, no eager fallback."""
+    from border_tpu_torch.agents import DQN, DQNConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import Evaluator, HostEnvTrainer, TrainerConfig
+    from border_tpu_torch.train.graphs import GraphCaptureError
+
+    _cuda()
+
+    class Syncing(DQN):
+        def select_action(self, state, obs, gen):
+            act = super().select_action(state, obs, gen)
+            return act if int(act.max()) >= 0 else -act  # a host read
+
+        def select_action_eval(self, state, obs, gen=None):
+            return self.select_action(state, obs, gen)
+
+    tr = HostEnvTrainer("CartPole-v1", Syncing(DQNConfig(hidden=(16,))),
+                        ReplayBuffer(512), TrainerConfig(
+                            max_opts=4, warmup_period=64, opt_interval=8,
+                            batch_size=16, num_envs=8, steps_per_chunk=4))
+    with pytest.raises(GraphCaptureError, match="_local_scalar_dense"):
+        tr.train()
+    ev = Evaluator(make("CartPole-v1"), 4, 40)
+    agent = Syncing(DQNConfig(hidden=(16,)))
+    st = agent.init(0, ev.vec.observation_space, ev.vec.action_space)
+    with pytest.raises(GraphCaptureError, match="_local_scalar_dense"):
+        ev.evaluate(agent, st)

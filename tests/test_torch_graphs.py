@@ -27,6 +27,7 @@ from border_tpu_torch.agents.common import (
     periodic_polyak,
 )
 from border_tpu_torch.core import spaces
+from border_tpu_torch.core.env import Timestep
 from border_tpu_torch.envs import make
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.ops import COUNTED, gather_frames
@@ -39,16 +40,20 @@ from border_tpu_torch.replay import (
 )
 from border_tpu_torch.train import (
     AsyncTrainer,
+    Evaluator,
+    HostEnvTrainer,
+    HostEvaluator,
     OfflineTrainer,
     Trainer,
     TrainerConfig,
 )
 from border_tpu_torch.train.graphs import (
     GraphCaptureError,
+    _leaves,
     add_metrics_,
     copy_into,
 )
-from border_tpu_torch.train.trainer import resolve_cuda_graphs
+from border_tpu_torch.train.trainer import example_transition, resolve_cuda_graphs
 from border_tpu_torch.utils.counters import (
     count,
     linear_f32,
@@ -65,11 +70,23 @@ def _with_counts(state):
 
 # -- the switch --------------------------------------------------------------
 
-@pytest.mark.parametrize("cls", [Trainer, AsyncTrainer])
+def _with_switch(cls, cuda_graphs):
+    """A CPU instance of a trainer or an evaluator given ``cuda_graphs``."""
+    if cls is Evaluator:
+        return Evaluator(make("CartPole-v1"), 2, 10, device="cpu",
+                         cuda_graphs=cuda_graphs)
+    if cls is HostEvaluator:
+        return HostEvaluator("CartPole-v1", 2, 10, cuda_graphs=cuda_graphs)
+    env = "CartPole-v1" if cls is HostEnvTrainer else make("CartPole-v1")
+    return cls(env, DQN(), ReplayBuffer(64, device="cpu"),
+               TrainerConfig(num_envs=4), device="cpu", cuda_graphs=cuda_graphs)
+
+
+@pytest.mark.parametrize("cls", [Trainer, AsyncTrainer, HostEnvTrainer,
+                                 Evaluator, HostEvaluator])
 def test_cuda_graphs_true_on_cpu_raises(cls):
     with pytest.raises(ConfigError, match="CUDA"):
-        cls(make("CartPole-v1"), DQN(), ReplayBuffer(64, device="cpu"),
-            TrainerConfig(num_envs=4), device="cpu", cuda_graphs=True)
+        _with_switch(cls, True)
     with pytest.raises(ConfigError, match="CUDA"):
         OfflineTrainer(DQN(), ReplayBuffer(64, device="cpu"), cuda_graphs=True)
 
@@ -103,13 +120,56 @@ def test_resolve_cuda_graphs(asked, device, graphable, want):
         assert resolve_cuda_graphs(asked, dev, graphable) is want
 
 
-def test_eager_only_trainers_say_so():
-    from border_tpu_torch.parallel.gspmd import GSPMDTrainer
-    from border_tpu_torch.parallel.sharded import ShardedTrainer
+@pytest.fixture(scope="module")
+def gloo_ranks(tmp_path_factory):
+    """Two spawned ranks over gloo: what the sharded trainers resolve."""
+    import os
+    import sys
 
-    assert Trainer.graphable
-    assert not AsyncTrainer.graphable
-    assert not ShardedTrainer.graphable and not GSPMDTrainer.graphable
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
+    import torch_dist_worker as W
+
+    tmp = tmp_path_factory.mktemp("graphable")
+    W.launch(tmp, 2, [["graphable", "graphable", {}]], timeout=300)
+    return W.results(tmp, "graphable", 2)
+
+
+@pytest.mark.parametrize("name, backend, want", [
+    ("Trainer", None, True), ("AsyncTrainer", None, True),
+    ("ShardedTrainer", "nccl", True), ("ShardedAsyncTrainer", "nccl", True),
+    ("ShardedTrainer", "gloo", False), ("ShardedAsyncTrainer", "gloo", False),
+    ("GSPMDTrainer", None, False),
+])
+def test_each_trainer_says_whether_it_graphs(name, backend, want, request,
+                                             tmp_path, monkeypatch):
+    """``graphable``: the plain and async trainers graph; the sharded ones
+    exactly when their group's backend is NCCL (gloo collectives cannot be
+    captured: two gloo ranks run eagerly and refuse ``cuda_graphs=True``);
+    GSPMDTrainer runs eagerly.  The NCCL case is a world of one whose
+    backend reads as NCCL; on the CPU it still resolves to eager."""
+    import torch.distributed as dist
+
+    from border_tpu_torch import parallel
+
+    cls = {"Trainer": Trainer, "AsyncTrainer": AsyncTrainer}.get(name) or getattr(
+        parallel, name)
+    if backend is None:
+        assert cls.graphable is want
+        return
+    if backend == "gloo":
+        for rank in request.getfixturevalue("gloo_ranks"):
+            assert bool(rank[f"{name}/graphable"]) is want
+            assert not rank[f"{name}/cuda_graphs"] and rank[f"{name}/true_raises"]
+        return
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+        tr = cls(make("CartPole-v1"), DQN(), ReplayBuffer(64, device="cpu"),
+                 TrainerConfig(num_envs=4, batch_size=4), device="cpu")
+        assert tr.graphable is want and tr.cuda_graphs is False
+    finally:
+        dist.destroy_process_group()
 
 
 # -- the helpers of a graphed body ---------------------------------------------
@@ -402,3 +462,182 @@ def test_a_state_saved_without_counts_restores_them_from_its_host_ints():
     got = unpack_state(template, pack_state(saved))
     assert got.counts is held and held.tolist() == [7, 70]
     assert (got.n_opts, got.n_samples) == (7, 70)
+
+
+# -- the restructured loops, on the CPU ----------------------------------------
+
+class _RandomPolicy:
+    """An agent whose greedy action is a draw from the evaluation's
+    generator: what the action generator's seeding decides."""
+
+    module = torch.nn.Linear(1, 1)
+
+    def policy_params(self, state):
+        return self.module
+
+    def select_action_eval(self, state, obs, gen=None):
+        return torch.randint(0, 2, (obs.shape[0],), generator=gen,
+                             dtype=torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["device", "host"])
+def test_evaluations_0_1_0_equal_fresh_evaluators(kind):
+    """One evaluator's evaluations 0, 1, 0 (its reset and action
+    generators re-seeded in place) against a fresh evaluator each: the same
+    records."""
+    def build():
+        if kind == "device":
+            return Evaluator(make("CartPole-v1"), 4, 60, device="cpu")
+        return HostEvaluator("CartPole-v1", 4, 60)
+
+    ev, policy = build(), _RandomPolicy()
+    got = [dict(ev.evaluate(policy, None, eval_index=i)[1].items())
+           for i in (0, 1, 0)]
+    want = [dict(build().evaluate(policy, None, eval_index=i)[1].items())
+            for i in (0, 1, 0)]
+    assert got == want and got[0] == got[2] and got[0] != got[1]
+
+
+def test_reset_with_index_reseeds_a_given_generator():
+    """``gen=``: the resets land in that generator, re-seeded in place,
+    and equal the fresh generator's."""
+    from border_tpu_torch.core.env import VecEnv
+
+    vec = VecEnv(make("CartPole-v1"), 3, device="cpu")
+    gen = torch.Generator()
+    a = vec.reset_with_index(7, 3, gen=gen)
+    b, c = vec.reset_with_index(7, 4, gen=gen), vec.reset_with_index(7, 3, gen=gen)
+    assert a.gen is gen and b.gen is gen and c.gen is gen
+    assert torch.equal(a.obs, c.obs) and not torch.equal(a.obs, b.obs)
+    fresh = vec.reset_with_index(7, 3)
+    assert fresh.gen is not gen and torch.equal(fresh.obs, c.obs)
+    assert torch.equal(torch.rand(4, generator=fresh.gen), torch.rand(4, generator=gen))
+
+
+class _HostSpec:
+    """The host-env interface HostEnvTrainer reads at construction."""
+
+    def __init__(self, n, shape, dtype):
+        self.num_envs = n
+        self.observation_space = spaces.Box(0, 255, shape, dtype)
+        self.action_space = spaces.Discrete(3)
+
+
+@pytest.mark.parametrize("frame", [True, False])
+def test_host_device_step_pushes_then_advances_as_before(frame):
+    """The device step in its new order (push the transition from the
+    fixed obs, then advance the obs in place, then select into the fixed
+    action tensor) against the old order (advance a new stack from the
+    previous one, push the previous one): the same ring, the same obs and
+    the same actions at every step, episodes ending among them."""
+    from border_tpu_torch.train.host import HostIO
+
+    n, steps = 4, 14
+    shape = (84, 84, 4) if frame else (5,)
+    dtype = torch.uint8 if frame else torch.float32
+    from border_tpu_torch.models import AtariCNN
+
+    agent = DQN(DQNConfig(model=lambda a: AtariCNN(a, dtype=torch.float32))
+                if frame else DQNConfig(hidden=(8,)))
+
+    def buffer():
+        return (FrameReplayBuffer(16, n, device="cpu") if frame
+                else ReplayBuffer(64, device="cpu"))
+
+    tr = HostEnvTrainer(_HostSpec(n, shape, dtype), agent, buffer(),
+                        TrainerConfig(num_envs=n), device="cpu")
+    old_buf = buffer()
+    obs_space = spaces.Box(-1.0, 1.0, (5,)) if not frame else tr.observation_space
+    st = agent.init(0, obs_space, tr.action_space, device="cpu")
+    ex = example_transition(obs_space, tr.action_space, "cpu")
+    bs, old_bs = tr.buffer.init(ex), old_buf.init(ex)
+    rng = np.random.RandomState(0)
+    np_dtype = np.uint8 if frame else np.float32
+
+    def obs_batch():
+        return (rng.randint(0, 256, (n, *shape)) if frame
+                else rng.randn(n, *shape)).astype(np_dtype)
+
+    io = HostIO(torch.device("cpu"))
+    obs0 = obs_batch()
+    io.upload("obs", obs0)
+    gen, old_gen = (torch.Generator().manual_seed(1) for _ in range(2))
+    act = tr._select(st, io.dev["obs"], gen)
+    old_obs, old_act = torch.as_tensor(obs0), act.clone()
+    ep_len = np.zeros(n, np.int32)
+    old_gen.set_state(gen.get_state())
+    for _ in range(steps):
+        obs2, final = obs_batch(), obs_batch()
+        term, trunc = rng.rand(n) < 0.2, rng.rand(n) < 0.1
+        step = (obs2, final, rng.randn(n).astype(np.float32), term, trunc)
+        tr._stage(io, step, ep_len)
+        tr._device_step(st, bs, io, act, gen)
+        # the old order: advance from the previous obs, then push it
+        rew, t_, u_ = (torch.as_tensor(x) for x in step[2:])
+        if frame:
+            new_obs = tr._advance_stack(
+                old_obs, torch.as_tensor(np.ascontiguousarray(obs2[..., -1])), t_ | u_)
+            final_t = None
+        else:
+            new_obs, final_t = torch.as_tensor(obs2), torch.as_tensor(final)
+        ts = Timestep(obs=None, final_obs=final_t, reward=rew, terminated=t_,
+                      truncated=u_, info={})
+        old_buf.process_step(old_bs, old_obs, old_act, ts, torch.as_tensor(ep_len))
+        old_obs = new_obs
+        old_act = tr._select(st, old_obs, old_gen)
+        assert torch.equal(io.dev["obs"], old_obs) and torch.equal(act, old_act)
+        ep_len = np.where(term | trunc, 0, ep_len + 1).astype(np.int32)
+    for (path, a), (_, b) in zip(_leaves(bs), _leaves(old_bs)):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b), path
+        else:
+            assert a == b, path
+
+
+def test_host_io_refuses_a_changed_array():
+    from border_tpu_torch.train.host import HostIO
+
+    io = HostIO(torch.device("cpu"))
+    held = io.upload("x", np.zeros(3, np.float32))
+    assert io.upload("x", np.ones(3, np.float32)) is held and held.tolist() == [1, 1, 1]
+    with pytest.raises(ValueError, match="changed"):
+        io.upload("x", np.zeros(4, np.float32))
+    with pytest.raises(ValueError, match="changed"):
+        io.upload("x", np.zeros(3, np.float64))
+
+
+def test_sync_policy_into_refreshes_a_persistent_state():
+    """``sync_policy(..., into=)`` sets the fields of a state that
+    persists: the same object, the given policy, every other field and the
+    host counters taken from the source."""
+    agent = DQN(DQNConfig(hidden=(8,)))
+    obs, act = spaces.Box(-1.0, 1.0, (4,)), spaces.Discrete(2)
+    learner = agent.init(0, obs, act, device="cpu")
+    stale = agent.init(1, obs, act, device="cpu").params
+    actor = agent.sync_policy(learner, stale)
+    learner.n_opts, learner.n_samples = 5, 40
+    assert agent.sync_policy(learner, stale, into=actor) is actor
+    assert actor.params is stale and actor.opt_state is learner.opt_state
+    assert (actor.n_opts, actor.n_samples) == (5, 40)
+    agent.on_env_step(actor, 8)
+    back = agent.sync_policy(actor, learner.params, into=learner)
+    assert back is learner and learner.params is not stale and learner.n_samples == 48
+
+
+def test_async_actor_state_persists_across_chunks():
+    """AsyncTrainer acts on one actor state object in every chunk (a graph
+    holds it on the card), refreshed from the learner's."""
+    agent = DQN(DQNConfig(hidden=(16,)))
+    cfg = TrainerConfig(max_opts=24, warmup_period=64, opt_interval=16,
+                        batch_size=16, num_envs=8, steps_per_chunk=8, seed=3,
+                        sync_interval=8)
+    tr = AsyncTrainer(make("CartPole-v1"), agent, ReplayBuffer(512, device="cpu"),
+                      cfg, device="cpu")
+    acted = []
+    select = agent.select_action
+    agent.select_action = lambda state, obs, gen: (
+        acted.append(state), select(state, obs, gen))[1]
+    r = tr.train()
+    assert r.opt_steps == 24 and len(acted) == 7 * 8
+    assert all(s is tr._actor_state for s in acted)
+    assert r.agent_state.n_samples == tr._actor_state.n_samples == 7 * 8 * 8
