@@ -53,14 +53,14 @@ class OfflineDataset:
     # -- constructors ------------------------------------------------------
     @classmethod
     def from_episodes(cls, episodes: List[Dict[str, np.ndarray]]) -> "OfflineDataset":
-        """Episodes with keys obs [T+1, ...], act [T, ...], reward [T],
-        terminated (bool, of the final step): the last step of each is
-        terminated or, if not, truncated."""
+        """Episodes with keys obs [T+1, ...] (or a dict of such arrays),
+        act [T, ...], reward [T], terminated (bool, of the final step): the
+        last step of each is terminated or, if not, truncated."""
         obs, act, nobs, rew, term, trunc = [], [], [], [], [], []
         for ep in episodes:
             T = len(ep["act"])
-            obs.append(ep["obs"][:T])
-            nobs.append(ep["obs"][1 : T + 1])
+            obs.append(map_obs(lambda o: o[:T], ep["obs"]))
+            nobs.append(map_obs(lambda o: o[1 : T + 1], ep["obs"]))
             act.append(ep["act"])
             rew.append(ep["reward"])
             t = np.zeros(T, bool)
@@ -71,10 +71,15 @@ class OfflineDataset:
                 tr[-1] = True
             term.append(t)
             trunc.append(tr)
+        def cat(parts):
+            if isinstance(parts[0], dict):
+                return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+            return np.concatenate(parts)
+
         return cls(
-            obs=np.concatenate(obs),
+            obs=cat(obs),
             act=np.concatenate(act),
-            next_obs=np.concatenate(nobs),
+            next_obs=cat(nobs),
             reward=np.concatenate(rew).astype(np.float32),
             terminated=np.concatenate(term),
             truncated=np.concatenate(trunc),

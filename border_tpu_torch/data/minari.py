@@ -207,16 +207,25 @@ class MinariDataset:
         )
 
     @classmethod
+    def load_local(cls, dataset_id: str, directory: str = LOCAL_DATASET_DIR,
+                   converter: Optional[MinariConverter] = None
+                   ) -> "MinariDataset":
+        """The local corpus ``<directory>/<dataset_id>.npz`` (+ ``.json``
+        metadata), and nothing else: no minari package, no HDF5 search."""
+        return cls._from_local(dataset_id, converter, directory)
+
+    @classmethod
     def _from_local(cls, dataset_id: str,
-                    converter: Optional[MinariConverter] = None
+                    converter: Optional[MinariConverter] = None,
+                    directory: str = LOCAL_DATASET_DIR,
                     ) -> "MinariDataset":
-        npz = os.path.join(LOCAL_DATASET_DIR, f"{dataset_id}.npz")
-        meta_path = os.path.join(LOCAL_DATASET_DIR, f"{dataset_id}.json")
+        npz = os.path.join(directory, f"{dataset_id}.npz")
+        meta_path = os.path.join(directory, f"{dataset_id}.json")
         if not os.path.exists(npz):
             available = sorted(
-                f[:-4] for f in os.listdir(LOCAL_DATASET_DIR)
+                f[:-4] for f in os.listdir(directory)
                 if f.endswith(".npz")
-            ) if os.path.isdir(LOCAL_DATASET_DIR) else []
+            ) if os.path.isdir(directory) else []
             raise KeyError(
                 f"dataset {dataset_id!r} not found locally and the minari "
                 f"package is unavailable; local corpora: {available}"
@@ -373,3 +382,30 @@ def list_local_datasets() -> List[str]:
     return sorted(
         f[:-4] for f in os.listdir(LOCAL_DATASET_DIR) if f.endswith(".npz")
     )
+
+
+def hdf5_to_local(path: str, directory: str,
+                  dataset_id: Optional[str] = None) -> str:
+    """Write the Minari-format HDF5 file ``path`` as a local corpus
+    ``<directory>/<dataset_id>.npz`` + ``.json`` (raw dict observations
+    under ``obs.<key>`` / ``next_obs.<key>``, the layout of the committed
+    ``.npz`` corpora), so that a machine without ``h5py`` reads it through
+    :meth:`MinariDataset.load_local`.  The transitions are those
+    ``_from_minari_hdf5`` makes; returns the ``.npz`` path."""
+    episodes, meta = load_minari_hdf5(path)
+    dataset_id = dataset_id or os.path.basename(
+        os.path.dirname(os.path.dirname(os.path.abspath(path))))
+    data = OfflineDataset.from_episodes([{
+        "obs": ep["observations"], "act": ep["actions"], "reward": ep["rewards"],
+        "terminated": bool(ep["terminations"][-1]),
+    } for ep in episodes])
+    os.makedirs(directory, exist_ok=True)
+    out = os.path.join(directory, f"{dataset_id}.npz")
+    data.save_npz(out)
+    with open(os.path.join(directory, f"{dataset_id}.json"), "w") as f:
+        json.dump({"dataset_id": dataset_id, "env": meta.get("env_name"),
+                   "ref_min": meta.get("ref_min"), "ref_max": meta.get("ref_max"),
+                   "behavior_return": meta.get("behavior_return"),
+                   "n_transitions": len(data),
+                   "source": os.path.relpath(path, directory)}, f, indent=1)
+    return out

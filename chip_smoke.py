@@ -76,8 +76,10 @@ Phases, one line each (any failure exits non-zero with no result line):
     updates a chunk): one warmup chunk and one update chunk (two before
     phases 23-25 were added), then phase 7;
 13. the whole cartpole learning-gate config (128 envs, n-step 3, an
-    evaluation of 20 episodes every 500 updates, 12,000 updates), one
-    seed: the run fails under a best evaluation score of 100;
+    evaluation of 20 episodes every 500 updates, 12,000 updates), seed 0,
+    through border_tpu_torch.learning.run into a temporary directory: its
+    artifact must hold five finite fresh evaluations of the best
+    checkpoint, and the run fails under a best evaluation score of 100;
 14. SAC on Pendulum at the pendulum gate config's width (128 envs, 256
     updates a chunk, batch 128, actor and two critics 128x128, auto
     entropy coefficient): one warmup chunk, two update chunks and one
@@ -86,12 +88,15 @@ Phases, one line each (any failure exits non-zero with no result line):
     rate over the run's 12,000 updates, batch 256) over the committed
     fetch-reacher-medium-v0 corpus (25,000 transitions, dict observations
     flattened), a normalized evaluation of 200 episodes x 50 steps every
-    2,000 updates: the run fails under a best normalized score of 50
+    2,000 updates, seed 0, through border_tpu_torch.learning.run: its
+    artifact must hold ten finite fresh evaluations of the best
+    checkpoint, and the run fails under a best normalized score of 50
     (the gate's target is 76);
-16, 17. the awac_offline and iql_offline configs at full width over the
-    same corpus, cut to 1,000 updates with their first evaluation moved
-    there (the gate's is at 2,000, where these phases stopped before
-    phases 23-25 were added).
+16, 17. the awac_offline and iql_offline configs at full width (IQL over
+    its gate corpus, the Minari-format HDF5 file converted to
+    artifacts/datasets/torch/), cut to 1,000 updates with their first
+    evaluation moved there (the gate's is at 2,000, where these phases
+    stopped before phases 23-25 were added).
     Each offline phase ends with chunks of 250 updates of the graphed
     OfflineTrainer and its eager twin timed in turns and 32 updates of each
     traced;
@@ -215,53 +220,27 @@ SLICE_GROUP = 64  # the JAX buffer's default
 GAME_ENVS, GAME_CAPACITY, SEAQUEST_BATCH = 512, 512, 256
 # the flat-buffer path (bench.py's fused CartPole config)
 CART_ENVS, CART_STEPS, CART_OPT_INTERVAL, CART_CAPACITY = 4096, 64, 256, 65_536
-# the cartpole learning-gate config; the run fails under CART_MIN_SCORE
-CART_GATE = dict(max_opts=12_000, warmup_period=1_000, opt_interval=16,
-                 batch_size=256, num_envs=128, steps_per_chunk=32,
-                 eval_interval=500)
-CART_GATE_TARGET, CART_MIN_SCORE = 200.0, 100.0
+# the learning-gate configs are border_tpu_torch/learning.py's (its tables
+# CART_GATE, PEND_GATE, OFFLINE_GATE_OPTS, HOST_GATE, HOST_CAPACITY,
+# HOST_EVAL and its builders); the whole cartpole run (phase 13) fails under
+# CART_MIN_SCORE
+CART_MIN_SCORE = 100.0
 EVAL_KEYS = {"Episode return", "Episode return min", "Episode return max",
              "Episode length", "Episodes truncated"}
-# the pendulum learning-gate config (SAC, Gaussian actor, two critics):
-# 128 envs, 32 steps and 256 updates a chunk, batch 128
-PEND_GATE = dict(warmup_period=1_000, opt_interval=16, batch_size=128,
-                 num_envs=128, steps_per_chunk=32)
-PEND_CAPACITY, PEND_UPDATE_CHUNKS = 65_536, 2
-# the offline learning-gate configs over the committed fetch-reacher corpus
-# (the full goal-dict layout, 8 features), evaluated on the Reacher
-OFFLINE_CORPUS = "fetch-reacher-medium-v0"
-OFFLINE_KEYS = ("observation", "desired_goal", "achieved_goal")
-OFFLINE_GATE_OPTS = {"bc_offline": 12_000, "awac_offline": 8_000,
-                     "iql_offline": 12_000}
-OFFLINE_BATCH, OFFLINE_EVAL_INTERVAL, OFFLINE_UPDATES_PER_CHUNK = 256, 2_000, 250
-OFFLINE_EVAL_EPISODES, OFFLINE_EVAL_STEPS = 200, 50
+# the pendulum gate config (SAC, Gaussian actor, two critics) is cut to
+# PEND_UPDATE_CHUNKS chunks of 256 updates
+PEND_UPDATE_CHUNKS = 2
 # awac_offline and iql_offline are cut to OFFLINE_CUT updates, their first
 # evaluation moved there (the gate's first is at 2,000), to keep the
 # script within its time
 OFFLINE_CUT = 1_000
 # bc_offline runs whole and fails under BC_MIN_SCORE (normalized)
-BC_TARGET, BC_MIN_SCORE = 76.0, 50.0
-# the host-env learning-gate configs (benchmarks/learning.py:181-223,
-# :262-288): host envs stepped by a feeder thread feed the device learner
-HOST_PIXEL_GATE = dict(max_opts=40_000, warmup_period=50_000, opt_interval=64,
-                       batch_size=512, num_envs=256, steps_per_chunk=32,
-                       eval_interval=2_000)
-HOST_GATE = {
-    "pong_host": HOST_PIXEL_GATE,
-    "breakout_host": HOST_PIXEL_GATE,
-    "pendulum_host": dict(max_opts=20_000, warmup_period=1_000, opt_interval=8,
-                          batch_size=128, num_envs=32, steps_per_chunk=32,
-                          eval_interval=2_000),
-}
-HOST_CAPACITY = {"pong_host": 1_024, "breakout_host": 1_024,
-                 "pendulum_host": 65_536}
-# (episodes, steps) of each config's HostEvaluator
-HOST_EVAL = {"pong_host": (5, 3_000), "breakout_host": (5, 6_750),
-             "pendulum_host": (10, 200)}
-# the card's runs: updates after the gate's warmup; pong_host's evaluations
-# are cut to 200 of the gate's 3,000 steps and its resumed run goes on for
-# HOST_RESUME_UPDATES more (both cut in half to keep the script within its
-# time)
+BC_MIN_SCORE = 50.0
+# the host-env gate configs, pendulum_host over NumpyPendulum (the card's
+# machine has no gymnasium).  The card's runs: updates after the gate's
+# warmup; pong_host's evaluations are cut to 200 of the gate's 3,000 steps
+# and its resumed run goes on for HOST_RESUME_UPDATES more (both cut in half
+# to keep the script within its time)
 HOST_UPDATES = {"pong_host": 512, "breakout_host": 256, "pendulum_host": 512}
 PONG_HOST_EVAL_STEPS, HOST_RESUME_UPDATES = 200, 128
 # native CartPole through HostEnvTrainer, the JAX package's own host-path
@@ -472,8 +451,8 @@ def main(only=None) -> None:
     timed("14 pendulum sac", pendulum_sac_path, torch, dev)
 
     # -- 15-17. the offline family over the committed corpus ----------------------
-    timed("15 bc_offline", offline_path, torch, dev, "bc_offline",
-          OFFLINE_GATE_OPTS["bc_offline"], min_score=BC_MIN_SCORE)
+    timed("15 bc_offline", offline_path, torch, dev, "bc_offline", None,
+          min_score=BC_MIN_SCORE)
     timed("16 awac_offline", offline_path, torch, dev, "awac_offline", OFFLINE_CUT)
     timed("17 iql_offline", offline_path, torch, dev, "iql_offline", OFFLINE_CUT)
 
@@ -1222,12 +1201,9 @@ def mode_paths(torch, dev) -> int:
 
 
 def _pixel_dqn():
-    from border_tpu_torch.agents import DQN, DQNConfig
-    from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.learning import pixel_dqn
 
-    return DQN(DQNConfig(model=lambda n: AtariCNN(out_dim=n), lr=1e-4,
-                         double_dqn=True, soft_update_interval=2_000, tau=1.0,
-                         eps_final_step=1_000_000))
+    return pixel_dqn()
 
 
 def _train_pixel(torch, label, env_id, agent, batch, update_chunks, per_sample,
@@ -1416,43 +1392,62 @@ def cartpole_fused_path(torch, dev) -> None:
     breakdown(torch, tr, r, "cartpole-fused", rounds=1)
 
 
-def cartpole_learns(torch, dev) -> None:
-    """Phase 13: the cartpole learning-gate config on one seed, whole."""
-    from border_tpu_torch.agents import DQN, DQNConfig
-    from border_tpu_torch.envs import make
-    from border_tpu_torch.replay import ReplayBuffer
-    from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
+def _gate_run(torch, config: str):
+    """``learning.run`` of the gate config ``config``, seed 0, whole, into a
+    temporary directory; checks the artifact it wrote (the evaluations, and
+    ``final_evals`` of the best checkpoint, finite).  Returns the run and
+    its seconds."""
+    from border_tpu_torch import learning
 
-    env = make("CartPole-v1")
-    agent = DQN(DQNConfig(hidden=(64, 64), lr=5e-4, gamma=0.99, tau=1.0,
-                          soft_update_interval=500, double_dqn=True,
-                          eps_final_step=10_000))
-    cfg = TrainerConfig(seed=0, **CART_GATE)
-    buffer = ReplayBuffer(capacity=CART_CAPACITY, n_step=3,
-                          stride=CART_GATE["num_envs"])
-    evaluator = Evaluator(env, n_episodes=20, max_steps=500)
-    tr = Trainer(env, agent, buffer, cfg, evaluator=evaluator)
-    t0 = time.perf_counter()
-    r = tr.train()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix=f"border_smoke_{config}_")
+    try:
+        out = learning.artifact_path(config, 0, work)
+        t0 = time.perf_counter()
+        g = learning.run(config, 0, out)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(out) as f:
+            art = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    finals = art.get("final_evals") or []
+    if (art != g.artifact or len(finals) != learning.N_FINAL_EVALS.get(config, 5)
+            or not all(map(math.isfinite, finals))
+            or art["final_median"] != round(statistics.median(finals), 2)):
+        fail(f"{config}: the artifact's final evaluations {finals}")
+    return g, art, seconds
+
+
+def cartpole_learns(torch, dev) -> None:
+    """Phase 13: the cartpole learning-gate config on seed 0, whole, through
+    ``learning.run`` (its artifact, with the best checkpoint's fresh
+    evaluations)."""
+    from border_tpu_torch import learning
+
+    g, art, seconds = _gate_run(torch, "cartpole")
+    r, gate = g.result, learning.CART_GATE
     scores = [s for _, s in r.eval_history]
-    n_evals = CART_GATE["max_opts"] // CART_GATE["eval_interval"]
-    if r.opt_steps < CART_GATE["max_opts"] or len(scores) < n_evals or not all(
-            map(math.isfinite, scores)):
+    n_evals = gate["max_opts"] // gate["eval_interval"]
+    if r.opt_steps < gate["max_opts"] or len(scores) < n_evals or not all(
+            map(math.isfinite, scores)) or len(art["curve"]) != len(scores) + 1:
         fail(f"cartpole learns: {r.opt_steps} updates, evaluations {r.eval_history}")
+    target = learning.TARGETS["cartpole"]
     result = {
         "updates": r.opt_steps, "env_steps": r.env_steps, "seconds": seconds,
+        "train_seconds": r.duration_sec,
         "updates_per_s": r.opt_per_sec, "env_steps_per_s": r.samples_per_sec,
         "eval_history": r.eval_history, "best_score": r.best_score,
-        "first_score": scores[0], "gate_target": CART_GATE_TARGET,
-        "met_gate_target": r.best_score >= CART_GATE_TARGET,
+        "first_score": scores[0], "final_evals": art["final_evals"],
+        "final_median": art["final_median"], "gate_target": target,
+        "met_gate_target": art["final_median"] >= target,
     }
     print(f"cartpole learns: the whole cartpole gate config "
-          f"({CART_GATE['max_opts']} updates), seed 0, {r.opt_steps} "
-          f"updates and {len(scores)} evaluations of 20 episodes in "
-          f"{seconds:.1f} s; best score {r.best_score:.1f} (first "
-          f"{scores[0]:.1f}; the gate's target {CART_GATE_TARGET:.0f} "
+          f"({gate['max_opts']} updates) through learning.run, seed 0, "
+          f"{r.opt_steps} updates and {len(scores)} evaluations of 20 episodes "
+          f"in {r.duration_sec:.1f} s, {seconds:.1f} s with the certification; "
+          f"best score {r.best_score:.1f} (first {scores[0]:.1f}); the best "
+          f"checkpoint's fresh evaluations {art['final_evals']}, median "
+          f"{art['final_median']} (the gate's target {target:.0f} "
           f"{'met' if result['met_gate_target'] else 'not met'})", flush=True)
     print("cartpole learns numbers: " + json.dumps(result), flush=True)
     if r.best_score < CART_MIN_SCORE:
@@ -1464,23 +1459,16 @@ def pendulum_sac_path(torch, dev) -> None:
     """Phase 14: SAC on Pendulum at the pendulum gate config's width: one
     warmup chunk, two update chunks of 256 updates and one evaluation of
     10 episodes x 200 steps, then phase 7 for this path."""
-    from border_tpu_torch.agents import SAC, SACConfig
-    from border_tpu_torch.envs import make
-    from border_tpu_torch.replay import ReplayBuffer
-    from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
+    from border_tpu_torch import learning
+    from border_tpu_torch.train import Trainer
 
-    upc = PEND_GATE["steps_per_chunk"] * PEND_GATE["num_envs"] // PEND_GATE["opt_interval"]
+    env, agent, buffer, cfg, ev, _ = learning.build("pendulum", 0, dev)
+    upc = cfg.steps_per_chunk * cfg.num_envs // cfg.opt_interval
     max_opts = PEND_UPDATE_CHUNKS * upc
-    env = make("Pendulum-v1")
-    agent = SAC(SACConfig(actor_hidden=(128, 128), critic_hidden=(128, 128),
-                          n_critics=2, actor_lr=3e-4, critic_lr=3e-4,
-                          ent_coef_mode="auto"))
     rec = _chunk_recorder()
-    tr = Trainer(env, agent, ReplayBuffer(capacity=PEND_CAPACITY),
-                 TrainerConfig(max_opts=max_opts, eval_interval=max_opts, seed=0,
-                               **PEND_GATE),
-                 recorder=rec, evaluator=Evaluator(env, n_episodes=EVAL_EPISODES,
-                                                   max_steps=EVAL_MAX_STEPS))
+    tr = Trainer(env, agent, buffer,
+                 cfg.replace(max_opts=max_opts, eval_interval=max_opts),
+                 recorder=rec, evaluator=ev)
     before = [p.detach().clone() for p in agent.init(
         0, tr.vec.observation_space, tr.vec.action_space).actor_params.parameters()]
     torch.cuda.reset_peak_memory_stats()
@@ -1518,7 +1506,7 @@ def pendulum_sac_path(torch, dev) -> None:
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print(f"pendulum-sac path: Trainer.train() Pendulum-v1, SAC 128x128, "
-          f"{PEND_GATE['num_envs']} envs, batch {PEND_GATE['batch_size']}, "
+          f"{cfg.num_envs} envs, batch {cfg.batch_size}, "
           f"{r.opt_steps} updates in {PEND_UPDATE_CHUNKS} update chunks; "
           f"env-steps/s {chunks[-1]['samples_per_sec']:.1f}, updates/s "
           f"{chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); evaluation "
@@ -1527,112 +1515,99 @@ def pendulum_sac_path(torch, dev) -> None:
     breakdown(torch, tr, r, "pendulum-sac", rounds=1)
 
 
-def offline_config(name: str, device, max_opts=None):
-    """The offline learning-gate config ``name`` (benchmarks/learning.py:
-    bc_offline, awac_offline, iql_offline) written with the port's classes:
-    (dataset, agent, TrainerConfig, evaluator).  ``max_opts`` cuts the run;
-    BC's cosine learning-rate horizon is the run's own ``max_opts`` (the JAX
-    gate hard-codes 12,000)."""
-    from border_tpu_torch.agents import AWAC, BC, IQL, AWACConfig, BCConfig, IQLConfig
-    from border_tpu_torch.agents.common import cosine_decay_schedule
-    from border_tpu_torch.data import GoalDictConverter, MinariDataset, NormalizedEvaluator
-    from border_tpu_torch.envs import make
-    from border_tpu_torch.envs.reacher import FlattenDictWrapper
-    from border_tpu_torch.train import TrainerConfig
-
-    max_opts = max_opts or OFFLINE_GATE_OPTS[name]
-    md = MinariDataset.load(OFFLINE_CORPUS,
-                            converter=GoalDictConverter(keys=OFFLINE_KEYS))
-    if name == "bc_offline":
-        agent = BC(BCConfig(hidden=(256, 256),
-                            lr=cosine_decay_schedule(1e-3, max_opts)))
-    elif name == "awac_offline":
-        agent = AWAC(AWACConfig(actor_hidden=(256, 256), critic_hidden=(256, 256),
-                                lambda_=10.0))
-    else:
-        agent = IQL(IQLConfig())
-    evaluator = NormalizedEvaluator(
-        FlattenDictWrapper(make("Reacher-v0"), keys=OFFLINE_KEYS),
-        n_episodes=OFFLINE_EVAL_EPISODES, max_steps=OFFLINE_EVAL_STEPS,
-        ref_min=md.ref_min, ref_max=md.ref_max, device=device)
-    cfg = TrainerConfig(max_opts=max_opts, batch_size=OFFLINE_BATCH,
-                        eval_interval=OFFLINE_EVAL_INTERVAL,
-                        flush_record_interval=10**9, seed=0)
-    return md, agent, cfg, evaluator
-
-
-def offline_path(torch, dev, name: str, max_opts: int, min_score=None) -> None:
+def offline_path(torch, dev, name: str, max_opts, min_score=None) -> None:
     """Phases 15-17: the offline gate config ``name`` at full width over the
-    whole committed corpus, ``max_opts`` updates with an evaluation of 200
-    episodes x 50 steps every 2,000; then one chunk of 250 updates timed
-    and 32 updates traced.  ``min_score``: the normalized best score the run
-    must reach."""
+    whole committed corpus, with an evaluation of 200 episodes x 50 steps
+    every 2,000 updates: whole through ``learning.run`` (seed 0, its
+    artifact with the best checkpoint's fresh evaluations) when ``max_opts``
+    is None, else cut to ``max_opts`` updates, the first evaluation there;
+    then one chunk of 250 updates timed and 32 updates traced.
+    ``min_score``: the normalized best score the run must reach."""
+    from border_tpu_torch import learning
     from border_tpu_torch.data import normalized_score
+    from border_tpu_torch.record import BufferedRecorder
     from border_tpu_torch.replay import ReplayBuffer
     from border_tpu_torch.train import OfflineTrainer
 
+    corpus = (os.path.join(learning.IQL_CORPUS_DIR, learning.IQL_CORPUS)
+              if name == "iql_offline" else
+              os.path.join(ROOT, "artifacts", "datasets", learning.OFFLINE_CORPUS))
     for ext in (".npz", ".json"):
-        path = os.path.join(ROOT, "artifacts", "datasets", OFFLINE_CORPUS + ext)
-        if not os.path.isfile(path):
-            fail(f"{name}: the corpus file {path} is missing")
-    md, agent, cfg, evaluator = offline_config(name, dev, max_opts)
-    cfg = cfg.replace(eval_interval=min(cfg.eval_interval, max_opts))
-    buffer = ReplayBuffer(capacity=md.get_num_transitions())
-    buf_state = md.create_replay_buffer(buffer)
+        if not os.path.isfile(corpus + ext):
+            fail(f"{name}: the corpus file {corpus + ext} is missing")
+    upc = learning.OFFLINE_UPDATES_PER_CHUNK
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    art = None
+    if max_opts is None:
+        g, art, _ = _gate_run(torch, name)
+        tr, r = g.trainer, g.result
+        behavior = art["behavior_normalized"]
+    else:
+        md, agent, cfg, evaluator = learning.offline_config(name, dev, max_opts)
+        cfg = cfg.replace(eval_interval=min(cfg.eval_interval, max_opts))
+        buffer = ReplayBuffer(capacity=md.get_num_transitions())
+        buf_state = md.create_replay_buffer(buffer)
+        vec = evaluator.vec
+        agent_state = agent.init(0, vec.observation_space, vec.action_space)
+        tr = OfflineTrainer(agent, buffer, cfg, recorder=BufferedRecorder(),
+                            evaluator=evaluator, updates_per_chunk=upc)
+        r = tr.train(agent_state, buf_state, seed=1000)
+        behavior = md.behavior_normalized_score()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    agent, buffer, cfg, rec = tr.agent, tr.buffer, tr.config, tr.recorder
+    max_opts = cfg.max_opts
+    buf_state = r.buffer_state
     if not (buf_state.size == 25_000 and buf_state.data.obs.is_cuda
             and tuple(buf_state.data.obs.shape) == (25_000, 8)):
         fail(f"{name}: buffer of {buf_state.size} transitions, obs "
              f"{tuple(buf_state.data.obs.shape)} on {buf_state.data.obs.device}")
-    vec = evaluator.vec
-    agent_state = agent.init(0, vec.observation_space, vec.action_space)
-    rec = _chunk_recorder()
-    tr = OfflineTrainer(agent, buffer, cfg, recorder=rec, evaluator=evaluator,
-                        updates_per_chunk=OFFLINE_UPDATES_PER_CHUNK)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    r = tr.train(agent_state, buf_state, seed=1000)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    n_chunks = max_opts // OFFLINE_UPDATES_PER_CHUNK
-    metric_keys = [k for k, _ in rec.chunks[0] if k != "opt_steps_per_sec"]
-    if r.opt_steps != max_opts or len(rec.chunks) != n_chunks or not all(
-            math.isfinite(c[k]) for c in rec.chunks for k in metric_keys):
-        fail(f"{name}: {r.opt_steps} updates, {len(rec.chunks)} chunks, "
-             f"metrics {dict(rec.chunks[-1].items())}")
+    # the run's chunk metrics, flushed once at its end (min, max, mean and
+    # median over the chunks)
+    metrics = [w for w in rec.records if "opt_steps" in w]
+    metric_keys = [k for k, _ in metrics[-1] if k != "opt_steps"]
+    if r.opt_steps != max_opts or len(metrics) != 1 or not all(
+            math.isfinite(metrics[0][k]) for k in metric_keys):
+        fail(f"{name}: {r.opt_steps} updates, metrics {[dict(w.items()) for w in metrics]}")
+    ups = metrics[0]["opt_steps_per_sec_median" if max_opts > upc else "opt_steps_per_sec"]
     nets = [v for v in vars(r.agent_state).values() if isinstance(v, torch.nn.Module)]
     if not all(p.is_cuda and torch.isfinite(p).all() for n in nets for p in n.parameters()):
         fail(f"{name}: a network is not finite or not on the card")
-    evals = [w for w in rec.written if "Episode return" in w]
+    evals = [w for w in rec.records if "Episode return" in w]
     want_keys = EVAL_KEYS | {"Normalized score"}
     if len(evals) != max_opts // cfg.eval_interval or len(r.eval_history) != len(
             evals) or any({k for k, _ in w} != want_keys for w in evals):
         fail(f"{name}: evaluation records {[dict(w.items()) for w in evals]}")
     scores = [w["Normalized score"] for w in evals]
-    best = normalized_score(r.best_score, md.ref_min, md.ref_max)
+    best = normalized_score(r.best_score, tr.evaluator.ref_min, tr.evaluator.ref_max)
     if not all(map(math.isfinite, scores)):
         fail(f"{name}: normalized scores {scores}")
-    ups = [c["opt_steps_per_sec"] for c in rec.chunks]
     result = {
-        "updates": r.opt_steps, "seconds": seconds,
-        "updates_per_s_median_chunk": statistics.median(ups),
-        "updates_per_s_min_max_chunk": [min(ups), max(ups)],
-        "final_metrics": {k: rec.chunks[-1][k] for k in metric_keys},
+        "updates": r.opt_steps, "seconds": seconds, "train_seconds": r.duration_sec,
+        "updates_per_s": r.opt_per_sec, "updates_per_s_median_chunk": ups,
+        "chunk_metrics": {k: metrics[0][k] for k in metric_keys},
         "normalized_scores": scores, "best_normalized": best,
         "eval_record": dict(evals[-1].items()),
-        "behavior_normalized": md.behavior_normalized_score(),
+        "behavior_normalized": behavior,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    target = learning.TARGETS[name]
+    if art is not None:
+        result.update(target=target, floor=min_score, final_evals=art["final_evals"],
+                      final_median=art["final_median"],
+                      met_target=art["final_median"] >= target)
     if name == "bc_offline":
-        result.update(target=BC_TARGET, floor=min_score,
-                      met_target=best >= BC_TARGET,
-                      lr_at_last_update=agent.config.lr(r.opt_steps - 1))
-    print(f"{name} path: OfflineTrainer.train() over {OFFLINE_CORPUS} "
+        result.update(lr_at_last_update=agent.config.lr(r.opt_steps - 1))
+    print(f"{name} path: OfflineTrainer.train() over {os.path.basename(corpus)} "
           f"({buf_state.size} transitions), {type(agent).__name__} at the gate "
-          f"width, batch {OFFLINE_BATCH}, {r.opt_steps} updates in {seconds:.1f} s "
-          f"({statistics.median(ups):.1f} updates/s, median chunk); normalized "
+          f"width, batch {cfg.batch_size}, {r.opt_steps} updates in "
+          f"{r.duration_sec:.1f} s ({ups:.1f} updates/s, median chunk); normalized "
           f"scores {[round(x, 2) for x in scores]}, best {best:.2f}"
-          + (f" (the gate's target {BC_TARGET:.0f}, floor {min_score:.0f})"
-             if min_score is not None else ""), flush=True)
+          + (f"; through learning.run: the best checkpoint's fresh evaluations "
+             f"{art['final_evals']}, median {art['final_median']} (the gate's "
+             f"target {target:.0f}, floor {min_score:.0f})"
+             if art is not None else ""), flush=True)
     print(f"{name} path numbers: " + json.dumps(result), flush=True)
     if min_score is not None and not best >= min_score:
         fail(f"{name}: best normalized score {best} is under {min_score}")
@@ -1643,7 +1618,7 @@ def offline_path(torch, dev, name: str, max_opts: int, min_score=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(3)
     ag, buf = r.agent_state, r.buffer_state
     twins = {"graphed": tr, "eager": OfflineTrainer(
-        agent, buffer, cfg, updates_per_chunk=OFFLINE_UPDATES_PER_CHUNK,
+        agent, buffer, cfg, updates_per_chunk=upc,
         cuda_graphs=False)}
     if not tr.cuda_graphs:
         fail(f"{name}: the OfflineTrainer on the card is not graphed")
@@ -1656,7 +1631,7 @@ def offline_path(torch, dev, name: str, max_opts: int, min_score=None) -> None:
         torch.cuda.synchronize()
         out[k]["chunk_s"].append(time.perf_counter() - t)
     for k, t in twins.items():
-        out[k]["ms_per_update"] = [1e3 * x / OFFLINE_UPDATES_PER_CHUNK
+        out[k]["ms_per_update"] = [1e3 * x / upc
                                    for x in out[k]["chunk_s"]]
         t.updates_per_chunk = 32
         out[k]["update_trace"] = trace(torch, lambda: t._chunk(ag, buf, gen), 32)
@@ -1882,37 +1857,13 @@ def numpy_pendulum(n: int, seed: int):
     return PyVecEnv([NumpyPendulum] * n, seed=seed)
 
 
-def host_config(name: str, device, capacity=None, eval_steps=None,
-                cuda_graphs=None, **cut):
-    """The host-env learning-gate config ``name`` (benchmarks/learning.py:
-    pong_host, breakout_host, pendulum_host) written with the port's
-    classes: (env, agent, buffer, TrainerConfig, evaluator).  ``cut``
-    replaces TrainerConfig fields (``num_envs`` cuts the width, the ring
-    following it); ``capacity`` and ``eval_steps`` cut the ring's depth and
-    the evaluation's horizon; ``cuda_graphs`` is the evaluator's switch.
-    pendulum_host's envs are :class:`NumpyPendulum` behind ``PyVecEnv``."""
-    from border_tpu_torch.agents import SAC, SACConfig
-    from border_tpu_torch.replay import FrameReplayBuffer, ReplayBuffer
-    from border_tpu_torch.train import HostEvaluator, TrainerConfig
+def host_config(name: str, device, **cut):
+    """``learning.host_config`` (the host-env gate config ``name``, seed 0,
+    ``cut`` as there), pendulum_host's envs :class:`NumpyPendulum` behind
+    ``PyVecEnv``: the card's machine has no gymnasium."""
+    from border_tpu_torch import learning
 
-    cfg = TrainerConfig(seed=0, **{**HOST_GATE[name], **cut})
-    capacity = capacity or HOST_CAPACITY[name]
-    episodes, steps = HOST_EVAL[name]
-    steps = eval_steps or steps
-    if name in ("pong_host", "breakout_host"):
-        env_id = "Pong-v0" if name == "pong_host" else "Breakout-v0"
-        buffer = FrameReplayBuffer(capacity=capacity, num_envs=cfg.num_envs,
-                                   device=device)
-        return (env_id, _pixel_dqn(), buffer, cfg,
-                HostEvaluator(env_id, n_episodes=episodes, max_steps=steps,
-                              cuda_graphs=cuda_graphs))
-    agent = SAC(SACConfig(actor_hidden=(128, 128), critic_hidden=(128, 128),
-                          n_critics=2, actor_lr=3e-4, critic_lr=3e-4,
-                          ent_coef_mode="auto"))
-    return (numpy_pendulum(cfg.num_envs, cfg.seed), agent,
-            ReplayBuffer(capacity=capacity, device=device), cfg,
-            HostEvaluator(numpy_pendulum, n_episodes=episodes, max_steps=steps,
-                          cuda_graphs=cuda_graphs))
+    return learning.host_config(name, device, make_env=numpy_pendulum, **cut)
 
 
 class _IndexedEvaluator:
@@ -2189,6 +2140,7 @@ def pong_host_path(torch, dev) -> int:
     HOST_UPDATES updates, two evaluations cut to 200 steps and a full-state
     checkpoint at the end; a second trainer resumed from it.  Returns the
     gather launches of both runs."""
+    from border_tpu_torch import learning
     from border_tpu_torch.envs.native import NativeVecEnv
     from border_tpu_torch.ops import frame_gather
     from border_tpu_torch.train import HostEnvTrainer
@@ -2222,7 +2174,7 @@ def pong_host_path(torch, dev) -> int:
         if r.buffer_state.total < warm_iters or not (r.buffer_state.frames > 0).any():
             fail(f"{name}: {r.buffer_state.total} pushes, or only black frames")
         if ev.indices != [0, 1] or mgr.all_steps() != [updates] or any(
-                rec_["Episodes truncated"] != HOST_EVAL[name][0] for rec_ in ev.records):
+                rec_["Episodes truncated"] != learning.HOST_EVAL[name][0] for rec_ in ev.records):
             fail(f"{name}: evaluations {ev.indices} {ev.records}, checkpoints "
                  f"{mgr.all_steps()}")
         ckpt_gb = os.path.getsize(mgr._path(updates)) / 1e9
@@ -2281,7 +2233,7 @@ def pong_host_path(torch, dev) -> int:
             checkpoint_restore_s=restore_s, resumed_gather_launches=launches2)
         print(f"pong_host path: HostEnvTrainer.train() Pong-v0 (C++ envpool), "
               f"{cfg.num_envs} envs, batch {cfg.batch_size}, ring "
-              f"{cfg.num_envs}x{HOST_CAPACITY[name]}, warmup {cfg.warmup_period} "
+              f"{cfg.num_envs}x{learning.HOST_CAPACITY[name]}, warmup {cfg.warmup_period} "
               f"env steps then {r.opt_steps} updates in {numbers['seconds']:.1f} s; "
               f"env-steps/s {statistics.median(numbers['env_steps_per_s_update_windows']):.1f}, "
               f"updates/s {statistics.median(numbers['updates_per_s_update_windows']):.2f}, "

@@ -1,7 +1,7 @@
 """The host-env path of the port against the JAX package: ``PyVecEnv``,
 ``GymVecBridge`` / ``evaluate_policy_on_gym``, the real-ALE seam,
 ``HostEnvTrainer`` / ``HostEvaluator``, the n-step stride check, and the
-three host gate configs as ``chip_smoke.py`` builds them.
+three host gate configs as ``border_tpu_torch/learning.py`` builds them.
 
 The trainer parity runs both trainers on the same C++ envs with ε 0 and
 the JAX agent's initial parameters carried over (``convert``), so both act
@@ -41,7 +41,7 @@ from border_tpu.replay import ReplayBuffer as JaxReplayBuffer
 from border_tpu.train import HostEnvTrainer as JaxHostEnvTrainer
 from border_tpu.train import Trainer as JaxTrainer
 from border_tpu.train import TrainerConfig as JaxTrainerConfig
-from border_tpu_torch import convert
+from border_tpu_torch import convert, learning
 from border_tpu_torch.agents import DQN, DQNConfig
 from border_tpu_torch.envs import AleVecEnv, PyVecEnv, ale_available, make
 from border_tpu_torch.envs.gym_bridge import GymVecBridge, evaluate_policy_on_gym
@@ -545,14 +545,14 @@ def _learning():
 
 @pytest.mark.parametrize("name", ["pong_host", "breakout_host", "pendulum_host"])
 def test_host_gate_configs_build_as_the_jax_ones_and_train(name, monkeypatch):
-    """At full width ``chip_smoke.host_config`` gives the JAX config's
+    """At full width ``learning.host_config`` gives the JAX config's
     trainer settings, buffer, agent and evaluator; at reduced width it
     trains two updates and evaluates once on the CPU, the pixel ones
     sampling through ``gather_frames``."""
     from border_tpu_torch.ops import frame_gather
 
     jenv, jagent, jbuf, jcfg, jev, _ = _learning()._build(name, 0)
-    env, agent, buf, cfg, ev = chip_smoke.host_config(name, "cpu")
+    env, agent, buf, cfg, ev = learning.host_config(name, "cpu")
     for f in ("max_opts", "warmup_period", "opt_interval", "batch_size",
               "num_envs", "steps_per_chunk", "eval_interval", "seed"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
@@ -575,7 +575,7 @@ def test_host_gate_configs_build_as_the_jax_ones_and_train(name, monkeypatch):
         lambda frames, idx: calls.append(tuple(idx.shape))
         or frame_gather.gather_frames_ref(frames, idx))
     width = 4
-    env, agent, buf, cfg, ev = chip_smoke.host_config(
+    env, agent, buf, cfg, ev = learning.host_config(
         name, "cpu", capacity=256, eval_steps=6, num_envs=width,
         warmup_period=12 * width, opt_interval=width, batch_size=8, max_opts=2,
         eval_interval=2, steps_per_chunk=4)

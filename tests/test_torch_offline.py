@@ -7,9 +7,9 @@
 - the replay buffer a dataset fills holds the JAX buffer's contents,
 - ``OfflineTrainer`` keeps the JAX trainer's cadence (evaluations, their
   seed indices, ``eval_callback``'s arguments),
-- the offline gate configs as ``chip_smoke.py`` builds them: BC's cosine
-  horizon is the run's own ``max_opts``, and a short BC run on the dict
-  corpus raises its normalized score.
+- the offline gate configs as ``border_tpu_torch/learning.py`` builds
+  them: BC's cosine horizon is the run's own ``max_opts``, and a short BC
+  run on the dict corpus raises its normalized score.
 """
 
 import os
@@ -32,6 +32,7 @@ from border_tpu.replay import ReplayBuffer as JaxReplayBuffer
 from border_tpu.train import Evaluator as JaxEvaluator
 from border_tpu.train import OfflineTrainer as JaxOfflineTrainer
 from border_tpu.train import TrainerConfig as JaxTrainerConfig
+from border_tpu_torch import learning
 from border_tpu_torch.agents import BC, BCConfig
 from border_tpu_torch.agents.common import lr_at
 from border_tpu_torch.data import (
@@ -398,20 +399,20 @@ def test_bc_horizon_is_the_runs_max_opts():
     """The reference hard-codes BC's cosine horizon at 12,000 updates: a run
     cut to 3,000 would end at 0.85 of the initial rate.  The port builds it
     from max_opts: the rate reaches 0 at the run's last update."""
-    _, agent, cfg, _ = chip_smoke.offline_config("bc_offline", "cpu", max_opts=3_000)
+    _, agent, cfg, _ = learning.offline_config("bc_offline", "cpu", max_opts=3_000)
     assert cfg.max_opts == 3_000
     assert lr_at(agent.config.lr, 0) == float(np.float32(1e-3))
     assert lr_at(agent.config.lr, 3_000) == 0.0
     assert 0 < lr_at(agent.config.lr, 2_999) < 1e-9
     reference = float(optax.cosine_decay_schedule(1e-3, 12_000)(3_000))
     assert 0.85e-3 < reference < 0.86e-3
-    _, agent, cfg, _ = chip_smoke.offline_config("bc_offline", "cpu")
+    _, agent, cfg, _ = learning.offline_config("bc_offline", "cpu")
     assert cfg.max_opts == 12_000 and lr_at(agent.config.lr, 12_000) == 0.0
 
 
 @pytest.mark.parametrize("name", ["bc_offline", "awac_offline", "iql_offline"])
 def test_offline_gate_configs_construct_and_train(name):
-    md, agent, cfg, ev = chip_smoke.offline_config(name, "cpu", max_opts=4)
+    md, agent, cfg, ev = learning.offline_config(name, "cpu", max_opts=4)
     assert md.data.obs.shape == (25_000, 8) and cfg.batch_size == 256
     assert (ev.n_episodes, ev.max_steps) == (200, 50)
     assert ev.vec.observation_space.shape == (8,)
@@ -428,7 +429,7 @@ def test_bc_learns_on_the_dict_corpus():
     """The bc_offline config cut to 1,000 updates (its cosine horizon with
     it) and 50-episode evaluations every 250: the normalized score climbs
     from its first evaluation."""
-    md, agent, cfg, _ = chip_smoke.offline_config("bc_offline", "cpu", max_opts=1_000)
+    md, agent, cfg, _ = learning.offline_config("bc_offline", "cpu", max_opts=1_000)
     ev = NormalizedEvaluator(chip_smoke_env(), n_episodes=50, max_steps=50,
                              ref_min=md.ref_min, ref_max=md.ref_max, device="cpu")
     buf = ReplayBuffer(md.get_num_transitions(), device="cpu")
@@ -443,7 +444,7 @@ def test_bc_learns_on_the_dict_corpus():
 def chip_smoke_env():
     from border_tpu_torch.envs.reacher import FlattenDictWrapper
 
-    return FlattenDictWrapper(make("Reacher-v0"), keys=chip_smoke.OFFLINE_KEYS)
+    return FlattenDictWrapper(make("Reacher-v0"), keys=learning.OFFLINE_KEYS)
 
 
 def test_evaluator_accepts_the_reacher_goal_env():
