@@ -81,6 +81,17 @@ def where_state(mask: torch.Tensor, a: Any, b: Any) -> Any:
     return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
+def tree_to(x: Any, device: torch.device) -> Any:
+    """A (nested) dataclass or dict of tensors with every tensor copied to
+    ``device``; other leaves are kept."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return type(x)(**{f.name: tree_to(getattr(x, f.name), device)
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: tree_to(v, device) for k, v in x.items()}
+    return x.to(device) if torch.is_tensor(x) else x
+
+
 def first_leaf(obs: Any) -> torch.Tensor:
     """An observation's tensor, or the first entry of a dict observation
     (for its batch size and device)."""
@@ -166,12 +177,16 @@ class VecEnv:
     def reset(self, seed_or_gen) -> VecEnvState:
         gen = as_generator(seed_or_gen, self.device)
         obs, st = self.env.reset_env(gen, self.num_envs, self.params, self.device)
+        return self._started(obs, st, gen)
+
+    def _started(self, obs, env_state, gen: torch.Generator) -> VecEnvState:
+        """The state of fresh episodes from a reset's ``obs`` and state."""
         zeros_f = torch.zeros((self.num_envs,), dtype=torch.float32,
                               device=self.device)
         zeros_i = torch.zeros((self.num_envs,), dtype=torch.int32,
                               device=self.device)
         return VecEnvState(
-            env_state=st, obs=obs, episode_return=zeros_f,
+            env_state=env_state, obs=obs, episode_return=zeros_f,
             episode_length=zeros_i, last_return=zeros_f.clone(),
             last_length=zeros_i.clone(), gen=gen,
         )
@@ -179,12 +194,24 @@ class VecEnv:
     def reset_with_index(self, base_seed: int, index: int,
                          gen: Optional[torch.Generator] = None) -> VecEnvState:
         """Deterministic per-index reset for evaluation
-        (≙ Env::reset_with_index, env.rs:162-180): a fresh generator seeded
-        with :func:`index_seed`, or ``gen`` re-seeded with it in place (a
-        CUDA graph of an evaluation's steps holds its generator, and replays
-        the draws of a later evaluation only from that one)."""
-        return self.reset(as_generator(index_seed(base_seed, index), self.device,
-                                       into=gen))
+        (≙ Env::reset_with_index, env.rs:162-180).  The reset draws come
+        from a CPU generator seeded with :func:`index_seed`, on every
+        device, so an index starts the same episodes everywhere (as
+        ``jax.random.fold_in`` does); on another device the reset is made
+        on the CPU and copied there.  ``state.gen``, the in-episode stream,
+        is a generator on the env's device seeded with the same seed: on
+        the CPU the reset's own, continued.  With ``gen`` that generator is
+        ``gen``, re-seeded in place (a CUDA graph of an evaluation's steps
+        holds its generator, and replays the draws of a later evaluation
+        only from that one)."""
+        seed = index_seed(base_seed, index)
+        if self.device.type == "cpu":
+            return self.reset(as_generator(seed, self.device, into=gen))
+        cpu = torch.device("cpu")
+        obs, st = self.env.reset_env(as_generator(seed, cpu), self.num_envs,
+                                     self.params, cpu)
+        return self._started(tree_to(obs, self.device), tree_to(st, self.device),
+                             as_generator(seed, self.device, into=gen))
 
     def step(
         self, state: VecEnvState, action: torch.Tensor

@@ -191,3 +191,64 @@ class PyVecEnv:
         if self._pool is not None:
             self._pool.shutdown(wait=False)
             self._pool = None
+
+
+# -- Gymnasium's Pendulum-v1 without gymnasium ---------------------------------
+class Box:
+    """A Gymnasium-API box space as PyVecEnv reads it: by its class name and
+    its ``low``/``high``/``shape``/``dtype``."""
+
+    def __init__(self, low, high, shape, dtype):
+        self.low, self.high, self.shape, self.dtype = low, high, shape, dtype
+
+
+class NumpyPendulum:
+    """Gymnasium's ``Pendulum-v1`` (``classic_control/pendulum.py`` with the
+    200-step ``TimeLimit`` that ``gymnasium.make`` adds), in plain numpy
+    for a machine without gymnasium: ``reset(seed=)`` → ``(obs, info)``,
+    ``step(u)`` → ``(obs, reward, terminated, truncated, info)``, the same
+    float64 state and seeding (``PCG64(SeedSequence(seed))``), so the same
+    seeds and actions give gymnasium's observations and rewards bitwise."""
+
+    max_speed, max_torque, dt, g, m, l, horizon = 8, 2.0, 0.05, 10.0, 1.0, 1.0, 200
+
+    def __init__(self):
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.observation_space = Box(low=-high, high=high, shape=(3,),
+                                     dtype=np.dtype(np.float32))
+        self.action_space = Box(low=np.full(1, -2.0, np.float32),
+                                high=np.full(1, 2.0, np.float32), shape=(1,),
+                                dtype=np.dtype(np.float32))
+        self._rng = None
+
+    def reset(self, seed=None, options=None):
+        if seed is not None or self._rng is None:
+            self._rng = np.random.Generator(np.random.PCG64(np.random.SeedSequence(seed)))
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self.t = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot], dtype=np.float32)
+
+    def step(self, u):
+        th, thdot = self.state
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        costs = (((th + np.pi) % (2 * np.pi)) - np.pi) ** 2 + 0.1 * thdot**2 + 0.001 * (u**2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th) + 3.0 / (m * l**2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self.t += 1
+        return self._obs(), -costs, False, self.t >= self.horizon, {}
+
+    def close(self):
+        pass
+
+
+def numpy_pendulum(n: int, seed: int) -> PyVecEnv:
+    """``n`` :class:`NumpyPendulum` envs behind ``PyVecEnv``."""
+    return PyVecEnv([NumpyPendulum] * n, seed=seed)

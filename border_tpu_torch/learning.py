@@ -16,6 +16,7 @@ Usage::
     python -m border_tpu_torch.learning pong --seed 1 --max-opts 40000
     python -m border_tpu_torch.learning gate      # over artifacts/torch/
     python -m border_tpu_torch.learning assemble  # merge the artifacts
+    python -m border_tpu_torch.learning pendulum_host --pendulum-env numpy
 
 Each artifact carries the JAX artifact's keys plus ``device`` (the card's
 name and power limit as ``nvidia-smi`` gives them, or ``cpu``) and
@@ -98,8 +99,7 @@ HOST_META = {
                   "trainer": "HostEnvTrainer"},
     "breakout_host": {"env": "Breakout-v0 (host C++ envpool)",
                       "agent": "DQN+AtariCNN", "trainer": "HostEnvTrainer"},
-    "pendulum_host": {"env": "Pendulum-v1 (external Gymnasium via PyVecEnv)",
-                      "agent": "SAC+Gaussian", "trainer": "HostEnvTrainer"},
+    "pendulum_host": {"agent": "SAC+Gaussian", "trainer": "HostEnvTrainer"},
 }
 # the offline configs (learning.py:294-378) over the fetch-reacher corpora
 # with the full goal-dict layout (8 features), evaluated on the Reacher
@@ -144,6 +144,24 @@ def _gym_pendulum(n: int, seed: int):
     return PyVecEnv.gym("Pendulum-v1", n, seed=seed)
 
 
+def _numpy_pendulum(n: int, seed: int):
+    from border_tpu_torch.envs.py_env import numpy_pendulum
+
+    return numpy_pendulum(n, seed)
+
+
+# pendulum_host's host envs, chosen by name (``--pendulum-env``): Gymnasium's
+# Pendulum-v1 as in the JAX config, or NumpyPendulum, its equations in plain
+# numpy (bitwise the same), for a machine without gymnasium
+PENDULUM_ENVS = {
+    "gymnasium": (_gym_pendulum,
+                  "Pendulum-v1 (external Gymnasium via PyVecEnv)"),
+    "numpy": (_numpy_pendulum,
+              "Pendulum-v1 (NumpyPendulum: Gymnasium's equations in numpy, "
+              "via PyVecEnv)"),
+}
+
+
 def host_config(name: str, device: DeviceLike = None, seed: int = 0,
                 capacity=None, eval_steps=None, cuda_graphs=None,
                 make_env=_gym_pendulum, **cut):
@@ -174,10 +192,12 @@ def host_config(name: str, device: DeviceLike = None, seed: int = 0,
                           cuda_graphs=cuda_graphs))
 
 
-def build(config: str, seed: int, device: DeviceLike = None):
+def build(config: str, seed: int, device: DeviceLike = None,
+          pendulum_env: str = "gymnasium"):
     """The online gate config ``config`` (benchmarks/learning.py::_build):
     (env, agent, buffer, TrainerConfig, evaluator, meta).  The host configs'
-    env is a native env id or a host vec env, for ``HostEnvTrainer``."""
+    env is a native env id or a host vec env, for ``HostEnvTrainer``;
+    ``pendulum_env`` names pendulum_host's (a key of ``PENDULUM_ENVS``)."""
     from border_tpu_torch.agents import DQN, IQN, DQNConfig, IQNConfig
     from border_tpu_torch.envs import make
     from border_tpu_torch.models import AtariCNN
@@ -185,8 +205,13 @@ def build(config: str, seed: int, device: DeviceLike = None):
     from border_tpu_torch.train import Evaluator, TrainerConfig
 
     if config in HOST_GATE:
-        env, agent, buffer, cfg, evaluator = host_config(config, device, seed)
-        return env, agent, buffer, cfg, evaluator, dict(HOST_META[config])
+        make_env, label = PENDULUM_ENVS[pendulum_env]
+        env, agent, buffer, cfg, evaluator = host_config(config, device, seed,
+                                                         make_env=make_env)
+        meta = dict(HOST_META[config])
+        if config == "pendulum_host":
+            meta["env"] = label
+        return env, agent, buffer, cfg, evaluator, meta
 
     def pixel(env_id, agent, num_envs, n_episodes, max_steps, **buffer_kw):
         return (make(env_id), agent,
@@ -441,18 +466,21 @@ def run_offline(config: str, seed: int, out: str, max_opts=None,
 
 
 def run(config: str, seed: int, out: str, max_opts=None,
-        device: DeviceLike = None) -> GateRun:
+        device: DeviceLike = None, pendulum_env: Optional[str] = None) -> GateRun:
     """One gate config for one seed (≙ learning.py::run): trains, then
     certifies the best checkpoint on fresh evaluations; the artifact at
     ``out`` is rewritten after every evaluation.  ``max_opts`` overrides
-    the config's."""
+    the config's; ``pendulum_env`` is :func:`build`'s (its default when
+    None)."""
     from border_tpu_torch.record import BufferedRecorder
     from border_tpu_torch.train import HostEnvTrainer, Trainer
 
     if config in OFFLINE_CONFIGS:
         return run_offline(config, seed, out, max_opts=max_opts, device=device)
     device = resolve_device(device)
-    env, agent, buffer, cfg, evaluator, meta = build(config, seed, device)
+    env, agent, buffer, cfg, evaluator, meta = build(
+        config, seed, device,
+        **({} if pendulum_env is None else {"pendulum_env": pendulum_env}))
     if max_opts:
         cfg = cfg.replace(max_opts=max_opts)
 
@@ -609,6 +637,10 @@ def main(argv=None) -> int:
     p.add_argument("--max-opts", type=int, default=0,
                    help="override the config's max_opts (the gate scores the "
                         "best checkpoint, not the curve's length)")
+    p.add_argument("--pendulum-env", choices=sorted(PENDULUM_ENVS),
+                   help="pendulum_host's envs: gymnasium's Pendulum-v1 (the "
+                        "default, as the JAX config) or NumpyPendulum, its "
+                        "equations in numpy; the artifact's env field names it")
     args = p.parse_args(argv)
     if args.config == "gate":
         return gate(args.artifacts or None)
@@ -619,8 +651,13 @@ def main(argv=None) -> int:
         return 0
     out = args.out or artifact_path(args.config, args.seed)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    options = {}
+    if args.pendulum_env:
+        if args.config != "pendulum_host":
+            p.error("--pendulum-env is pendulum_host's")
+        options["pendulum_env"] = args.pendulum_env
     r = run(args.config, args.seed, out, max_opts=args.max_opts or None,
-            device="cpu" if args.cpu else args.device)
+            device="cpu" if args.cpu else args.device, **options)
     print(json.dumps(r.artifact), flush=True)
     return 0
 

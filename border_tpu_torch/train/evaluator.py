@@ -62,7 +62,7 @@ class Evaluator:
         self.cuda_graphs = resolve_cuda_graphs(cuda_graphs, self.vec.device,
                                                owner="Evaluator")
         dev = self.vec.device
-        # the action and reset generators, re-seeded in place every
+        # the action and env generators, re-seeded in place every
         # evaluation (the graph holds them; the eager path makes new resets)
         self._act_gen = torch.Generator(device=dev)
         self._env_gen = torch.Generator(device=dev)

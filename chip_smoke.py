@@ -40,7 +40,7 @@ Phases, one line each (any failure exits non-zero with no result line):
    then the same run with the eager chunk (cuda_graphs=False), which must
    end bitwise equal (agent state, replay state, every chunk's loss);
 7. where a chunk's time goes, for the graphed chunk and the eager one in
-   turns (graphed, eager, eager, graphed): their env and update phases
+   turns (graphed, then eager): their env and update phases
    timed apart in this run, the graphed phases' device time with CUDA
    events while the host has queued them ahead of the card, and a few env
    steps and updates of each traced with torch.profiler (device busy time,
@@ -119,10 +119,11 @@ Phases, one line each (any failure exits non-zero with no result line):
 19. the breakout_host config the same way: warmup and 256 updates, the
     eager twin and the breakdown;
 20. the pendulum_host config (SAC 128x128, auto entropy coefficient, 32
-    envs, batch 128, 4 updates an iteration) over PyVecEnv and a numpy
-    Pendulum with Gymnasium's equations (the card's machine has no
-    gymnasium): the 1,000-step warmup, 512 updates and one evaluation of
-    the gate's 10 x 200 steps, the eager twin and the breakdown;
+    envs, batch 128, 4 updates an iteration) over PyVecEnv and the
+    package's NumpyPendulum, Gymnasium's equations in numpy (the card's
+    machine has no gymnasium): the 1,000-step warmup, 512 updates and one
+    evaluation of the gate's 10 x 200 steps, the eager twin and the
+    breakdown;
 21. native CartPole through HostEnvTrainer at the JAX package's host-path
     learning test's config (DQN 64x64, 32 envs, 1,500 updates, evaluations
     of 5 x 500 steps every 500), graphed: fails under a best score of 100;
@@ -185,7 +186,23 @@ Phases, one line each (any failure exits non-zero with no result line):
     6 env steps and 8 updates with a finite loss; (d) the sharded_dqn
     example through main(argv), a world of one over NCCL, its defaults'
     width, --max-opts 1,000.  The ranks' gather launches count in the
-    kernels line.
+    kernels line;
+27. evaluation resets: for every registered env id at indices 0, 1 and
+    10,007, VecEnv.reset_with_index on the card is bitwise the CPU's (obs
+    and state: an index's reset is drawn on the CPU on every device); a
+    fixed AWAC policy (seed 0's parameters) evaluated at awac_offline's
+    config (200 episodes x 50 steps, Reacher with the goal-dict layout)
+    from index 0 on the card and on the CPU: the same lengths, returns to
+    rtol 1e-4 / atol 1e-3 (cuBLAS sums in another order; TF32 off);
+28. border_tpu_torch.bench at full width, cut to 2 timed chunks and 20
+    timed steps: the gather must launch once an update of the fused Pong
+    bench (inside the captured update) and of its per-step twin, and the
+    line hold bench.py's keys plus device, every rate finite and above 0;
+29. border_tpu_torch.dryrun: entry()'s forward on the card, then
+    dryrun_multichip(2), two gloo ranks on the one card (ShardedTrainer on
+    CartPole with PER and on Pong, GSPMDTrainer dp=1 tp=2 flat and pixel,
+    ShardedAsyncTrainer), its five lines; the ranks' gather launches count
+    in the kernels line.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -257,6 +274,21 @@ GSPMD_ENV_STEPS, GSPMD_UPDATES, GSPMD_MAX_FRAC = 6, 8, 0.05
 # the JAX-trained Pong policy must reach the gate's Pong target on the card;
 # play_pong then plays PLAY_STEPS steps into a GIF
 PONG_TARGET, PLAY_STEPS = 18.0, 512
+# phase 27: every registered env id's reset at these evaluation indices must
+# be the CPU's bitwise; a fixed AWAC policy's evaluation at awac_offline's
+# config (200 episodes of 50 steps) must give the CPU's returns to
+# RESET_EVAL_RTOL / RESET_EVAL_ATOL (the MLP's sums run in another order in
+# cuBLAS than on the CPU; TF32 is off)
+RESET_INDICES, RESET_BASE_SEED = (0, 1, 10_007), 424242
+RESET_EVAL_RTOL, RESET_EVAL_ATOL = 1e-4, 1e-3
+# phase 28: the bench's fused benches cut to BENCH_CHUNKS timed chunks, its
+# per-step benches to BENCH_STEPS timed steps; its line's keys
+BENCH_CHUNKS, BENCH_STEPS = 2, 20
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_def",
+              "vs_border_estimate", "border_estimate_band_env_steps_per_sec",
+              "pong_updates_per_sec", "pong_ale_frames_per_sec",
+              "pong_env_only_steps_per_sec", "baseline_env_steps_per_sec",
+              "cartpole_env_steps_per_sec", "cartpole_vs_baseline", "device"}
 
 
 def fail(msg: str) -> None:
@@ -472,6 +504,11 @@ def main(only=None) -> None:
 
     # -- 26. the multi-GPU paths: NCCL world of one, two ranks over gloo -------
     launches += timed("26 sharded", sharded_paths, torch, dev)
+
+    # -- 27-29. evaluation resets, the bench, the dryrun ---------------------------
+    timed("27 resets", reset_paths, torch, dev)
+    launches += timed("28 bench", bench_path, torch, dev)
+    launches += timed("29 dryrun", dryrun_path, torch, dev)
 
     kernels = [{
         "name": "frame_gather",
@@ -1147,7 +1184,7 @@ def per_path(torch, dev) -> int:
         print("PER path numbers: " + json.dumps(result), flush=True)
         del tr2, r2, rec2
         torch.cuda.empty_cache()
-        breakdown(torch, tr, r, "per", rounds=1)
+        breakdown(torch, tr, r, "per")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches + launches2
@@ -1311,7 +1348,7 @@ def seaquest_path(torch, dev) -> int:
     result.update(eval_score=score, eval_record=dict(evals[0].items()),
                   seconds=time.perf_counter() - t0)
     print("seaquest-iqn path numbers: " + json.dumps(result), flush=True)
-    breakdown(torch, tr, r, "seaquest-iqn", rounds=1)
+    breakdown(torch, tr, r, "seaquest-iqn")
     del tr, r
     torch.cuda.empty_cache()
     return launches
@@ -1389,7 +1426,7 @@ def cartpole_fused_path(torch, dev) -> None:
           f"updates/s {chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); final "
           f"loss {losses[-1]:.6g}", flush=True)
     print("cartpole-fused path numbers: " + json.dumps(result), flush=True)
-    breakdown(torch, tr, r, "cartpole-fused", rounds=1)
+    breakdown(torch, tr, r, "cartpole-fused")
 
 
 def _gate_run(torch, config: str):
@@ -1512,7 +1549,7 @@ def pendulum_sac_path(torch, dev) -> None:
           f"{chunks[-1]['opt_steps_per_sec']:.2f} (last chunk); evaluation "
           f"score {score:.1f}", flush=True)
     print("pendulum-sac path numbers: " + json.dumps(result), flush=True)
-    breakdown(torch, tr, r, "pendulum-sac", rounds=1)
+    breakdown(torch, tr, r, "pendulum-sac")
 
 
 def offline_path(torch, dev, name: str, max_opts, min_score=None) -> None:
@@ -1645,20 +1682,18 @@ def offline_path(torch, dev, name: str, max_opts, min_score=None) -> None:
     torch.cuda.empty_cache()
 
 
-def breakdown(torch, tr, r, label: str, env_only: bool = False,
-              rounds: int = 2) -> None:
+def breakdown(torch, tr, r, label: str, env_only: bool = False) -> None:
     """The env and update phases of a chunk of ``tr``'s path timed apart (host
     clock, each ending in a device sync), then a shorter stretch of each
     traced (:func:`trace`), for the graphed chunk (``tr``, CUDA-graph
     replays) and the eager one (a twin of ``tr`` with ``cuda_graphs=False``)
-    in turns: graphed, eager, eager, graphed, ...  Starts from the main
+    in turns: graphed, then eager.  Starts from the main
     path's final agent and replay state, with the trainer's own buffer (and
     its modes); the two twins go on from each other's states.  For the
     graphed twin the device time of a phase is also taken with CUDA events
     while the host has queued the whole phase ahead of the card (so it
     holds no host time).  ``env_only``: trace the env steps alone (the
-    launches an env step); ``rounds``: how often the two phases are timed
-    apart for each twin."""
+    launches an env step)."""
     from border_tpu_torch.train import Trainer, TrainerConfig
 
     gen = torch.Generator(device=tr.device).manual_seed(3)
@@ -1690,10 +1725,9 @@ def breakdown(torch, tr, r, label: str, env_only: bool = False,
     if not env_only:
         update_phase(tr)
     out = {k: {"env_phase_s": [], "update_phase_s": []} for k in twins}
-    for i in range(0 if env_only else rounds):
-        for k in ("graphed", "eager") if i % 2 == 0 else ("eager", "graphed"):
-            out[k]["env_phase_s"].append(timed(lambda: env_phase(k, twins[k]))[1])
-            out[k]["update_phase_s"].append(timed(lambda: update_phase(twins[k]))[1])
+    for k in () if env_only else ("graphed", "eager"):
+        out[k]["env_phase_s"].append(timed(lambda: env_phase(k, twins[k]))[1])
+        out[k]["update_phase_s"].append(timed(lambda: update_phase(twins[k]))[1])
     for k, o in out.items():
         o["ms_per_env_step"] = [1e3 * e / c.steps_per_chunk for e in o["env_phase_s"]]
         o["ms_per_update"] = [1e3 * u / tr.updates_per_chunk
@@ -1787,81 +1821,12 @@ def trace(torch, run, n: int) -> dict:
     }
 
 
-class Box:
-    """A Gymnasium-API box space as PyVecEnv reads it: by its class name and
-    its ``low``/``high``/``shape``/``dtype``."""
-
-    def __init__(self, low, high, shape, dtype):
-        self.low, self.high, self.shape, self.dtype = low, high, shape, dtype
-
-
-class NumpyPendulum:
-    """Gymnasium's ``Pendulum-v1`` (``classic_control/pendulum.py`` with the
-    200-step ``TimeLimit`` that ``gymnasium.make`` adds), in plain numpy
-    for a machine without gymnasium: ``reset(seed=)`` → ``(obs, info)``,
-    ``step(u)`` → ``(obs, reward, terminated, truncated, info)``, the same
-    float64 state and seeding (``PCG64(SeedSequence(seed))``), so the same
-    seeds and actions give gymnasium's observations and rewards bitwise."""
-
-    max_speed, max_torque, dt, g, m, l, horizon = 8, 2.0, 0.05, 10.0, 1.0, 1.0, 200
-
-    def __init__(self):
-        import numpy as np
-
-        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
-        self.observation_space = Box(low=-high, high=high, shape=(3,),
-                                     dtype=np.dtype(np.float32))
-        self.action_space = Box(low=np.full(1, -2.0, np.float32),
-                                high=np.full(1, 2.0, np.float32), shape=(1,),
-                                dtype=np.dtype(np.float32))
-        self._rng = None
-
-    def reset(self, seed=None, options=None):
-        import numpy as np
-
-        if seed is not None or self._rng is None:
-            self._rng = np.random.Generator(np.random.PCG64(np.random.SeedSequence(seed)))
-        high = np.array([np.pi, 1.0])
-        self.state = self._rng.uniform(low=-high, high=high)
-        self.t = 0
-        return self._obs(), {}
-
-    def _obs(self):
-        import numpy as np
-
-        theta, thetadot = self.state
-        return np.array([np.cos(theta), np.sin(theta), thetadot], dtype=np.float32)
-
-    def step(self, u):
-        import numpy as np
-
-        th, thdot = self.state
-        g, m, l, dt = self.g, self.m, self.l, self.dt
-        u = np.clip(u, -self.max_torque, self.max_torque)[0]
-        costs = (((th + np.pi) % (2 * np.pi)) - np.pi) ** 2 + 0.1 * thdot**2 + 0.001 * (u**2)
-        newthdot = thdot + (3 * g / (2 * l) * np.sin(th) + 3.0 / (m * l**2) * u) * dt
-        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
-        newth = th + newthdot * dt
-        self.state = np.array([newth, newthdot])
-        self.t += 1
-        return self._obs(), -costs, False, self.t >= self.horizon, {}
-
-    def close(self):
-        pass
-
-
-def numpy_pendulum(n: int, seed: int):
-    """``n`` :class:`NumpyPendulum` envs behind ``PyVecEnv``."""
-    from border_tpu_torch.envs import PyVecEnv
-
-    return PyVecEnv([NumpyPendulum] * n, seed=seed)
-
-
 def host_config(name: str, device, **cut):
     """``learning.host_config`` (the host-env gate config ``name``, seed 0,
     ``cut`` as there), pendulum_host's envs :class:`NumpyPendulum` behind
     ``PyVecEnv``: the card's machine has no gymnasium."""
     from border_tpu_torch import learning
+    from border_tpu_torch.envs.py_env import numpy_pendulum
 
     return learning.host_config(name, device, make_env=numpy_pendulum, **cut)
 
@@ -2341,6 +2306,8 @@ def pendulum_host_path(torch, dev) -> None:
           f"host_wait_frac {statistics.median(numbers['host_wait_frac_update_windows']):.3f} "
           f"(median update window); evaluation score {score:.1f}", flush=True)
     print("pendulum_host path numbers: " + json.dumps(numbers), flush=True)
+    from border_tpu_torch.envs.py_env import numpy_pendulum
+
     host_breakdown(torch, tr, r, name, lambda: numpy_pendulum(cfg.num_envs, 1))
 
 
@@ -3351,6 +3318,149 @@ def sharded_paths(torch, dev) -> int:
         {"a": a, "b": bc["b"], "c": bc["c"], "d": d, "seconds": t}), flush=True)
     return a["launches_total"] + bc["launches_total"]
 
+
+
+def reset_paths(torch, dev) -> None:
+    """Phase 27: every registered env id's evaluation reset on the card is
+    the CPU's, bitwise (obs and state) at RESET_INDICES; then a fixed AWAC
+    policy (seed 0's initial parameters) evaluated at awac_offline's
+    evaluation config on the card and on the CPU from index 0: the same
+    lengths, and returns within RESET_EVAL_RTOL / RESET_EVAL_ATOL."""
+    from border_tpu_torch import learning
+    from border_tpu_torch.core.env import VecEnv
+    from border_tpu_torch.envs import make, registry
+    from border_tpu_torch.train.graphs import _leaves
+
+    cpu = torch.device("cpu")
+    leaves = 0
+    for env_id in sorted(registry):
+        on_cpu = VecEnv(make(env_id), EVAL_EPISODES, device=cpu)
+        on_card = VecEnv(make(env_id), EVAL_EPISODES, device=dev)
+        for index in RESET_INDICES:
+            a = on_cpu.reset_with_index(RESET_BASE_SEED, index)
+            b = on_card.reset_with_index(RESET_BASE_SEED, index)
+            for (k, x), (_, y) in zip(_leaves({"obs": a.obs, "state": a.env_state}),
+                                      _leaves({"obs": b.obs, "state": b.env_state}),
+                                      strict=True):
+                if not (y.device.type == dev.type and x.dtype == y.dtype
+                        and torch.equal(x, y.cpu())):
+                    fail(f"resets: {env_id} index {index}: {k} differs between "
+                         f"the card and the CPU")
+                leaves += 1
+            if b.gen.device.type != dev.type:
+                fail(f"resets: {env_id}: the in-episode generator is on {b.gen.device}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out, policy = [], None
+        for d in (dev, cpu):
+            _, agent, _, ev = learning.offline_config("awac_offline", d)
+            vec = ev.vec
+            state = agent.init(0, vec.observation_space, vec.action_space, device=d)
+            if policy is None:
+                policy = agent.policy_params(state).state_dict()
+            else:
+                agent.policy_params(state).load_state_dict(policy)
+            t0 = time.perf_counter()
+            returns, lengths, running = ev._rollout(agent, state, 0)
+            score, _ = ev.evaluate(agent, state, eval_index=0)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            out.append((returns.cpu(), lengths.cpu(), int(running),
+                        time.perf_counter() - t0, score))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (rg, lg, ng, sg, score_g), (rc, lc, nc, sc, score_c) = out
+    err = (rg - rc).abs().max().item()
+    if not (torch.equal(lg, lc) and ng == nc
+            and torch.allclose(rg, rc, rtol=RESET_EVAL_RTOL, atol=RESET_EVAL_ATOL)):
+        fail(f"resets: the AWAC evaluation on the card differs from the CPU's: "
+             f"max |return diff| {err}, lengths equal {torch.equal(lg, lc)}")
+    print(f"resets: {len(registry)} env ids x {len(RESET_INDICES)} indices, "
+          f"{leaves} obs and state tensors bitwise the CPU's; awac_offline's "
+          f"evaluation ({rg.numel()} episodes x {learning.OFFLINE_EVAL_STEPS} steps) "
+          f"of seed 0's AWAC policy: max |card - CPU| return {err:.3g}, mean "
+          f"return {rg.mean().item():.6g} / {rc.mean().item():.6g}, evaluation "
+          f"score {score_g:.4f} / {score_c:.4f}, {sg:.2f} / {sc:.2f} s", flush=True)
+
+
+def bench_path(torch, dev) -> int:
+    """Phase 28: the four functions of border_tpu_torch.bench at full width,
+    cut to BENCH_CHUNKS timed chunks and BENCH_STEPS timed steps.  The frame
+    gather must launch once an update (the fused Pong bench: the untimed
+    chunk's and the timed chunks'; the per-step one: its first update and a
+    step's); the line must hold bench.py's keys plus ``device``, every rate
+    finite and above 0.  Returns the gather's launches."""
+    from border_tpu_torch import bench, learning
+    from border_tpu_torch.ops import frame_gather
+
+    t = {}
+    frame_gather.gather_frames.launches = 0
+    t0 = time.perf_counter()
+    pong_eps, pong_ups, pong_env_only = bench.bench_pong_fused(BENCH_CHUNKS, dev)
+    t["pong_fused"] = time.perf_counter() - t0
+    fused_launches = frame_gather.gather_frames.launches
+    _, _, _, cfg = bench.pong_fused_config(dev)
+    fused_updates = (BENCH_CHUNKS + 1) * cfg.steps_per_chunk * cfg.num_envs // cfg.opt_interval
+    _free(torch)
+    frame_gather.gather_frames.launches = 0
+    t0 = time.perf_counter()
+    pong_base = bench.bench_pong_reference_architecture(BENCH_STEPS, dev)
+    t["pong_per_step"] = time.perf_counter() - t0
+    base_launches = frame_gather.gather_frames.launches
+    if fused_launches != fused_updates or base_launches != BENCH_STEPS + 1:
+        fail(f"bench: frame_gather launched {fused_launches} times for "
+             f"{fused_updates} fused updates and {base_launches} for "
+             f"{BENCH_STEPS + 1} per-step updates")
+    _free(torch)
+    t0 = time.perf_counter()
+    cp_fused = bench.bench_fused(BENCH_CHUNKS, dev)
+    t["cartpole_fused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cp_base = bench.bench_reference_architecture(BENCH_STEPS, dev)
+    t["cartpole_per_step"] = time.perf_counter() - t0
+    line = bench.result_line(pong_eps, pong_ups, pong_env_only, pong_base,
+                             cp_fused, cp_base, learning.device_label(dev))
+    rates = [v for k, v in line.items() if isinstance(v, float)]
+    if (set(line) != BENCH_KEYS or len(rates) != 9
+            or not all(math.isfinite(v) and v > 0 for v in rates)
+            or torch.cuda.get_device_name(dev) not in line["device"]):
+        fail(f"bench: line {line}")
+    print(f"bench: border_tpu_torch.bench at full width, {BENCH_CHUNKS} timed "
+          f"chunks and {BENCH_STEPS} timed steps; frame_gather launches "
+          f"{fused_launches} = fused updates, {base_launches} = per-step "
+          f"updates; seconds {json.dumps({k: round(v, 2) for k, v in t.items()})}",
+          flush=True)
+    print("bench line (cut): " + json.dumps(line), flush=True)
+    return fused_launches + base_launches
+
+
+def dryrun_path(torch, dev) -> int:
+    """Phase 29: border_tpu_torch.dryrun on the card: entry()'s forward, then
+    dryrun_multichip(2), two gloo ranks on the one card, its five lines.
+    Returns the ranks' gather launches."""
+    from border_tpu_torch import dryrun
+
+    fn, args = dryrun.entry(device=dev)
+    with torch.no_grad():
+        q = fn(*args)
+    if q.shape != (8, 6) or not q.is_cuda or not torch.isfinite(q.float()).all():
+        fail(f"dryrun: entry's forward gave {tuple(q.shape)} on {q.device}")
+    t0 = time.perf_counter()
+    lines, launches = dryrun.dryrun_multichip(2, dev)
+    seconds = time.perf_counter() - t0
+    heads = ("dryrun_multichip OK", "dryrun_multichip pixel OK",
+             "dryrun_multichip dp×tp OK", "dryrun_multichip pixel dp×tp OK",
+             "dryrun_multichip sharded-async OK")
+    # the pixel chunks' updates, a gather on each rank each: ShardedTrainer's
+    # 4 and GSPMDTrainer's 2
+    if (len(lines) != len(heads) or launches != 2 * (4 + 2)
+            or not all(x.startswith(h) for x, h in zip(lines, heads))):
+        fail(f"dryrun: lines {lines}, gather launches {launches}")
+    print(f"dryrun: entry's forward (8, 6) on the card; dryrun_multichip(2) over "
+          f"gloo on the one card, five lines, in {seconds:.1f} s; frame_gather "
+          f"launches on the ranks {launches}", flush=True)
+    return launches
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:

@@ -443,6 +443,31 @@ def test_classic_control_on_card_matches_cpu_path():
 
 
 @pytest.mark.cuda
+def test_reset_with_index_on_card_is_the_cpu_reset_bitwise():
+    """Every registered env id at three indices: the card's per-index reset
+    (obs and state) is the CPU's, bitwise, and its in-episode generator is
+    a card generator seeded with the index's seed (re-seeded in place when
+    given)."""
+    dev = _cuda()
+    from border_tpu_torch.core.env import VecEnv, index_seed
+    from border_tpu_torch.envs import make, registry
+    from border_tpu_torch.train.graphs import _leaves
+
+    for env_id in sorted(registry):
+        cpu, card = VecEnv(make(env_id), 5, device="cpu"), VecEnv(make(env_id), 5, device=dev)
+        held = torch.Generator(device=dev)
+        for index in (0, 1, 10_007):
+            a, b = cpu.reset_with_index(3, index), card.reset_with_index(3, index, gen=held)
+            for (k, x), (_, y) in zip(_leaves({"obs": a.obs, "state": a.env_state}),
+                                      _leaves({"obs": b.obs, "state": b.env_state}),
+                                      strict=True):
+                assert y.is_cuda and torch.equal(x, y.cpu()), (env_id, index, k)
+            assert b.gen is held and torch.equal(
+                held.get_state(),
+                torch.Generator(device=dev).manual_seed(index_seed(3, index)).get_state())
+
+
+@pytest.mark.cuda
 def test_reacher_on_card_matches_cpu_path():
     """45 Reacher steps (short of the 50-step episode end) on the card
     against the CPU path from the same state and actions: observations and

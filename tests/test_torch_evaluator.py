@@ -23,10 +23,11 @@ from border_tpu.core.env import VecEnvState as JaxVecEnvState
 from border_tpu.train import Evaluator as JaxEvaluator
 from border_tpu_torch.agents import DQN, DQNConfig
 from border_tpu_torch.core.env import Environment, VecEnv, VecEnvState, index_seed
-from border_tpu_torch.envs import make
+from border_tpu_torch.envs import make, registry
 from border_tpu_torch.models import AtariCNN
 from border_tpu_torch.train import Evaluator
 from border_tpu_torch.train.evaluator import _CHECK_EVERY
+from border_tpu_torch.train.graphs import _leaves
 
 KEYS = {"Episode return", "Episode return min", "Episode return max",
         "Episode length", "Episodes truncated"}
@@ -176,6 +177,34 @@ def test_reset_with_index_is_repeatable_and_distinct():
     # the generator goes on from the reset: the serve draws repeat too
     assert torch.equal(torch.rand(4, generator=a.gen), torch.rand(4, generator=b.gen))
     assert index_seed(7, 3) == 7 * 1_000_003 + 3 != index_seed(3, 7)
+
+
+@pytest.mark.parametrize("env_id", sorted(registry))
+def test_reset_with_index_on_the_cpu_is_the_index_seeded_reset(env_id):
+    """On the CPU an index's reset is the env's reset from a CPU generator
+    seeded with ``index_seed``, bitwise, and ``state.gen`` is that generator
+    continued: the same episode starts on every device (the card's reset is
+    made on the CPU and copied, ``test_torch_cuda.py``)."""
+    env = make(env_id)
+    vec = VecEnv(env, 3, device="cpu")
+    for index in (0, 1, 10_007):
+        got = vec.reset_with_index(7, index)
+        gen = torch.Generator().manual_seed(7 * 1_000_003 + index)
+        obs, st = env.reset_env(gen, 3, env.default_params, torch.device("cpu"))
+        want = dict(_leaves({"obs": obs, "state": st}))
+        have = dict(_leaves({"obs": got.obs, "state": got.env_state}))
+        assert have.keys() == want.keys()
+        for k, v in want.items():
+            assert have[k].dtype == v.dtype and torch.equal(have[k], v), (index, k)
+        assert torch.equal(got.gen.get_state(), gen.get_state())
+        assert not got.episode_return.any() and not got.episode_length.any()
+        # gen=: that generator, re-seeded in place, draws the same resets
+        held = torch.Generator().manual_seed(123)
+        again = vec.reset_with_index(7, index, gen=held)
+        assert again.gen is held
+        assert torch.equal(held.get_state(), gen.get_state())
+        assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            _leaves(again.env_state), _leaves(got.env_state), strict=True))
 
 
 def test_evaluate_pong_with_dqn_on_the_cpu():

@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from border_tpu.agents import DQN as JaxDQN
 from border_tpu.agents import DQNConfig as JaxDQNConfig
 from border_tpu.envs import make as jax_make
@@ -46,6 +45,7 @@ from border_tpu_torch.agents import DQN, DQNConfig
 from border_tpu_torch.envs import AleVecEnv, PyVecEnv, ale_available, make
 from border_tpu_torch.envs.gym_bridge import GymVecBridge, evaluate_policy_on_gym
 from border_tpu_torch.envs.native import NativeVecEnv
+from border_tpu_torch.envs.py_env import numpy_pendulum
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.models import AtariCNN
 from border_tpu_torch.record import NullRecorder
@@ -116,9 +116,9 @@ def test_pyvecenv_matches_the_jax_one_on_real_gymnasium(name):
 
 
 def test_numpy_pendulum_is_gymnasium_pendulum_bitwise():
-    """chip_smoke's numpy Pendulum (the card's machine has no gymnasium)
+    """The package's numpy Pendulum (for a machine without gymnasium)
     against gymnasium's Pendulum-v1, through PyVecEnv."""
-    ours = chip_smoke.numpy_pendulum(4, 11)
+    ours = numpy_pendulum(4, 11)
     ref = PyVecEnv.gym("Pendulum-v1", 4, seed=11)
     assert ours.observation_space == ref.observation_space
     assert ours.action_space == ref.action_space

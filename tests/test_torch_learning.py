@@ -149,10 +149,37 @@ def test_gate_config_is_the_jax_one_field_for_field(config):
 
 def test_pendulum_host_needs_gymnasium(monkeypatch):
     """pendulum_host steps Gymnasium's Pendulum as the JAX config does; with
-    no gymnasium it raises (no numpy stand-in)."""
+    no gymnasium it raises (the numpy stand-in only when asked for)."""
     monkeypatch.setitem(sys.modules, "gymnasium", None)
     with pytest.raises(ImportError):
         learning.build("pendulum_host", 0, "cpu")
+
+
+def test_pendulum_host_on_numpy_pendulum_when_asked(monkeypatch, tmp_path):
+    """``pendulum_env="numpy"`` (``--pendulum-env numpy``) builds
+    pendulum_host over NumpyPendulum without gymnasium, the config otherwise
+    the same, and the artifact's env field names it; the option is
+    pendulum_host's only."""
+    from border_tpu_torch.envs.py_env import NumpyPendulum
+
+    monkeypatch.setitem(sys.modules, "gymnasium", None)
+    env, agent, buf, cfg, ev, meta = learning.build("pendulum_host", 0, "cpu",
+                                                    pendulum_env="numpy")
+    assert all(isinstance(e, NumpyPendulum) for e in env.envs) and len(env.envs) == 32
+    assert cfg == learning.host_config("pendulum_host", "cpu", make_env=lambda n, s: None)[3]
+    assert meta["env"] == learning.PENDULUM_ENVS["numpy"][1] != learning.PENDULUM_ENVS[
+        "gymnasium"][1]
+    env.close()
+    calls = []
+    monkeypatch.setattr(learning, "run", lambda *a, **k: calls.append((a, k))
+                        or learning.GateRun({}, None, None))
+    out = str(tmp_path / "p.json")
+    assert learning.main(["pendulum_host", "--pendulum-env", "numpy", "--cpu",
+                          "--out", out]) == 0
+    assert calls == [(("pendulum_host", 0, out),
+                      {"max_opts": None, "device": "cpu", "pendulum_env": "numpy"})]
+    with pytest.raises(SystemExit):
+        learning.main(["pendulum", "--pendulum-env", "numpy"])
 
 
 # -- the gate -------------------------------------------------------------------
@@ -276,6 +303,45 @@ def test_bc_offline_runs_through_run_and_certifies(tmp_path, monkeypatch):
     art = _check_artifact("bc_offline", out, r, 2)
     assert art["config"] == {"max_opts": 20, "batch_size": 256}
     assert art["dataset"] == "fetch-reacher-medium-v0"
+
+
+def test_certification_scores_the_best_checkpoint_on_the_fresh_indices(
+        tmp_path, monkeypatch):
+    """The in-training evaluations take indices 0, 1, ...; the certification
+    reloads the best checkpoint and scores it on the JAX harness's fresh
+    indices, ``10_000 + 7 i`` for ``N_FINAL_EVALS`` (10 for bc_offline),
+    and ``final_evals`` are those scores."""
+    from border_tpu_torch.data import NormalizedEvaluator, normalized_score
+
+    source = (ROOT / "benchmarks" / "learning.py").read_text()
+    assert source.count("eval_index=10_000 + 7 * i") == 2
+    build = learning.build_offline
+    seen, refs = [], []
+
+    def small(config, seed, device, max_opts):
+        md, agent, cfg, ev, eval_env, meta = build(config, seed, device, max_opts)
+        refs.extend((md.ref_min, md.ref_max))
+        ev = NormalizedEvaluator(eval_env, n_episodes=4, max_steps=10,
+                                 ref_min=md.ref_min, ref_max=md.ref_max,
+                                 device=device)
+        evaluate = ev.evaluate
+
+        def recording(agent, agent_state, eval_index=0):
+            out = evaluate(agent, agent_state, eval_index=eval_index)
+            seen.append((eval_index, out[0]))
+            return out
+
+        ev.evaluate = recording
+        return md, agent, cfg.replace(eval_interval=10), ev, eval_env, meta
+
+    monkeypatch.setattr(learning, "build_offline", small)
+    monkeypatch.setattr(learning, "OFFLINE_UPDATES_PER_CHUNK", 10)
+    r = learning.run("bc_offline", 0, str(tmp_path / "bc.json"), max_opts=20,
+                     device="cpu")
+    fresh = [10_000 + 7 * i for i in range(learning.N_FINAL_EVALS["bc_offline"])]
+    assert [i for i, _ in seen] == [0, 1] + fresh
+    assert r.artifact["final_evals"] == [
+        round(float(normalized_score(s, *refs)), 2) for _, s in seen[2:]]
 
 
 def test_main_writes_the_gate_named_artifact_and_gates(tmp_path, monkeypatch, capsys):

@@ -62,7 +62,8 @@ def test_port_sources_name_no_jax_module_in_an_import():
                 "parallel/__init__.py", "parallel/distributed.py",
                 "parallel/mesh.py", "parallel/sharded.py",
                 "parallel/async_sharded.py", "parallel/gspmd.py",
-                "utils/collectives.py", "examples/sharded_dqn.py"):
+                "utils/collectives.py", "examples/sharded_dqn.py", "bench.py",
+                "dryrun.py"):
         assert root / "border_tpu_torch" / new in files
     banned = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|border_tpu)(?:[.\s]|$)",
@@ -201,3 +202,18 @@ def test_slice_6_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.load_jax_policy(DQN(DQNConfig(model=AtariCNN)), str(model),
                                 pix, spaces.Discrete(6))
+
+
+def test_bench_and_dryrun_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The bench's functions and line, and the dryrun's forward, ranks and
+    command line, run on the GPU unless the CPU is asked for."""
+    from border_tpu_torch import bench, dryrun
+
+    _no_gpu(monkeypatch)
+    for fn in (bench.bench_pong_fused, bench.bench_pong_reference_architecture,
+               bench.bench_fused, bench.bench_reference_architecture,
+               lambda: bench.main([]), dryrun.entry, lambda: dryrun.dryrun_multichip(2),
+               lambda: dryrun.main([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
+    assert dryrun.entry(device="cpu")[1][1].device.type == "cpu"
