@@ -287,6 +287,13 @@ def param_stats(params: nn.Module, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def gamma_not_done(gamma: float, terminated: torch.Tensor) -> torch.Tensor:
+    """Bootstrap mask: γ·(1−terminated) in float32.  Truncated episodes
+    still bootstrap (≙ gamma_not_done, border-candle-agent/src/util.rs;
+    dqn/base.rs:91-105 uses only is_terminated)."""
+    return gamma * (1.0 - terminated.to(torch.float32))
+
+
 def bootstrap_discount(gamma: float, batch) -> torch.Tensor:
     """Bootstrap factor for a sampled batch: γ·(1−terminated) for 1-step
     batches, or the buffer-provided γ^m·(1−terminated) when the batch

@@ -302,6 +302,11 @@ class FrameReplayBuffer:
             prio[None, :].expand(n, -1).reshape(-1),
         )
 
+    @property
+    def size_attr(self) -> str:
+        """The state's counter of steps pushed (``total``)."""
+        return "total"
+
     def fill(self, state: FrameReplayState) -> int:
         """Sampleable transitions currently resident (global count); matches
         ``sample``'s draw range ``[lo, hi)``."""

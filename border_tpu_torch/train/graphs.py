@@ -24,7 +24,12 @@ iterations (on a side stream, as capture asks: lazy state such as the
 optimizer's moments and the kernels' libraries is made then), captures it
 on its next, and replays it from then on.  A capture that fails raises
 :class:`GraphCaptureError` naming the operator that broke it; nothing falls
-back to the eager body.  Each replay adds the kernel launches its capture
+back to the eager body.  No collection of the cyclic garbage collector runs
+inside a capture (:func:`no_collection`): an object in a dead reference
+cycle can hold a captured graph (a trainer's or an evaluator's graphs hold
+their owner through the body), and destroying a graph while another
+stream is capturing invalidates that capture, so the collector runs just
+before the capture instead.  Each replay adds the kernel launches its capture
 recorded to the counted wrappers' ``launches``
 (:data:`border_tpu_torch.ops.COUNTED`) and the collectives it recorded
 (an update's gradient all-reduce under NCCL) to
@@ -41,7 +46,9 @@ seed.  A new generator object would need a new capture.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -123,6 +130,22 @@ def add_metrics_(sums: Dict[str, torch.Tensor], metrics: Dict[str, Any]) -> None
         if k not in sums:
             sums[k] = torch.zeros_like(v)
         sums[k].add_(v)
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Collects the cyclic garbage, then keeps the collector from running
+    until the block ends (it runs again after, if it ran before): a
+    finalizer that a collection starts inside a capture, such as a dead
+    graph's destructor, must not make its CUDA calls there."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class _LastOp(TorchDispatchMode):
@@ -214,7 +237,7 @@ class LoopGraph:
         before_collectives = collectives.captured.copy()
         last = _LastOp()
         try:
-            with torch.cuda.graph(graph, stream=self._side_stream()):
+            with no_collection(), torch.cuda.graph(graph, stream=self._side_stream()):
                 with last:
                     self.step()
         except GraphCaptureError:

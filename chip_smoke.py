@@ -152,16 +152,29 @@ Phases, one line each (any failure exits non-zero with no result line):
     the evaluation runs graphed (an env step replayed in blocks of 8) and
     eagerly, with the same record, bitwise, and both times printed; a
     16-step evaluation of each traced: the graphed one must make fewer host
-    operator calls a step; then play_pong's main plays 512 steps into a
-    GIF, read back;
-25. the examples through main(argv) at their default width: dqn_pong
-    (--tensorboard, the 50,000-step warmup and one update chunk; the
-    gather's launches must equal its updates), dqn_cartpole (an agent
-    from a YAML config, --mlflow against a stub server on 127.0.0.1,
-    --checkpoint-interval, then --resume), convert_policy (512 SAC
-    updates, export, numpy-only deployment on the C++ Pendulum pool) and
-    offline_fetch_reacher --dataset fetch-reacher-medium-v0 (250 IQL
-    updates), one line each with its seconds;
+    operator calls a step;
+25. thirteen examples through main(argv) at their default width, with no
+    --device (the default, cuda), cut in depth only through their own
+    options: dqn_pong (--tensorboard, the 50,000-step warmup and one
+    update chunk), dqn_cartpole (an agent from a YAML config, --mlflow
+    against a stub server on 127.0.0.1, --checkpoint-interval, then
+    --resume), convert_policy (512 SAC updates, export, numpy-only
+    deployment on the C++ Pendulum pool), offline_fetch_reacher --dataset
+    fetch-reacher-medium-v0 (250 IQL updates), async_dqn_pong (2,048
+    updates after its warmup, one evaluation, the best model), iqn_seaquest
+    and dqn_pong_host (256 updates after their warmups, the latter on the
+    C++ envpool), dqn_cartpole_native (1,000 updates on the C++ envpool),
+    sac_pendulum and sac_reacher (2,048 updates; each of these three ends
+    in an evaluation and saves its best model), offline_pendulum (its
+    behavior corpus built with --corpus-steps 20,480, then 500 IQL
+    updates), offline_pendulum_medium with each of --agent bc, awac and
+    iql (1,000 updates and an evaluation over the committed
+    pendulum-medium-v0) and play_pong (the committed JAX-trained policy,
+    512 steps into a GIF, --no-render).  Each must return, its networks
+    on the card and finite, what it wrote read back (event file, saved
+    model loaded into a state on the card, corpus, GIF), its printed
+    summary parse to finite numbers, and the pixel examples' gather
+    launches equal their updates; one line each with its seconds;
 26. the multi-GPU paths (border_tpu_torch.parallel): (a) ShardedTrainer in
     a world of one rank over NCCL (a FileStore in a temporary directory) at
     the uniform path's config, one env chunk and one update chunk of 512
@@ -183,10 +196,16 @@ Phases, one line each (any failure exits non-zero with no result line):
     within 2·lr of the plain Trainer's and at most 5% of them beyond
     1e-3·lr (Adam's first step is lr·sign(g), and a bf16 gradient near 0
     may flip its sign under another summation order), then a chunk cut to
-    6 env steps and 8 updates with a finite loss; (d) the sharded_dqn
-    example through main(argv), a world of one over NCCL, its defaults'
-    width, --max-opts 1,000.  The ranks' gather launches count in the
-    kernels line;
+    6 env steps and 8 updates with a finite loss; (d) GSPMDTrainer at
+    dp=2, tp=1 on those two ranks: 512 envs and half the ring's env
+    columns (0.92 GB) a rank (ActorShardedFrames), the env step dp-fold;
+    6 env steps from the plain Trainer's states and generator state must
+    give the rank's env rows and ring columns bitwise, the first update
+    the measure of (c), then a chunk of 6 env steps and 8 updates with a
+    finite loss and the replicated parameters equal across the ranks;
+    (e) the sharded_dqn example through main(argv), a world of one over
+    NCCL, its defaults' width, --max-opts 1,000.  The ranks' gather
+    launches count in the kernels line;
 27. evaluation resets: for every registered env id at indices 0, 1 and
     10,007, VecEnv.reset_with_index on the card is bitwise the CPU's (obs
     and state: an index's reset is drawn on the CPU on every device); a
@@ -271,9 +290,17 @@ HOST_CART_MIN_SCORE = 100.0
 # update at most GSPMD_MAX_FRAC of the elements may step differently from
 # the plain Trainer's (bf16 gradients whose sign flips)
 GSPMD_ENV_STEPS, GSPMD_UPDATES, GSPMD_MAX_FRAC = 6, 8, 0.05
-# the JAX-trained Pong policy must reach the gate's Pong target on the card;
-# play_pong then plays PLAY_STEPS steps into a GIF
-PONG_TARGET, PLAY_STEPS = 18.0, 512
+# the JAX-trained Pong policy must reach the gate's Pong target on the card
+PONG_TARGET = 18.0
+# phase 25: the examples' depth, cut through their own --max-opts (each at
+# its default width; the pixel ones after their 50,000-step warmups, the
+# MLP ones to one evaluation at the end), offline_pendulum's corpus to
+# EXAMPLE_CORPUS_STEPS transitions and play_pong to PLAY_STEPS steps
+EXAMPLE_OPTS = {"async_dqn_pong": 2_048, "iqn_seaquest": 256, "dqn_pong_host": 256,
+                "dqn_cartpole_native": 1_000, "sac_pendulum": 2_048,
+                "sac_reacher": 2_048, "offline_pendulum": 500,
+                "offline_pendulum_medium": 1_000}
+EXAMPLE_CORPUS_STEPS, PLAY_STEPS = 20_480, 512
 # phase 27: every registered env id's reset at these evaluation indices must
 # be the CPU's bitwise; a fixed AWAC policy's evaluation at awac_offline's
 # config (200 episodes of 50 steps) must give the CPU's returns to
@@ -453,34 +480,8 @@ def main(only=None) -> None:
         phase_s[label] = round(time.perf_counter() - t, 2)
         return out
 
-    # -- 6. the uniform path --------------------------------------------------
-    launches, tr, r = timed("6 uniform", main_path, torch, dev,
-                            skipped=(0, None, None))
-
-    # -- 7. where a chunk's time goes ----------------------------------------
-    if tr is not None:
-        timed("7 uniform breakdown", breakdown, torch, tr, r, "uniform")
-    del tr, r
-    torch.cuda.empty_cache()
-
-    # -- 8. the prioritized path, with evaluation, checkpoints and resume ---
-    launches += timed("8 per", per_path, torch, dev)
-
-    # -- 9. slice mode and n-step 3 -------------------------------------------
-    launches += timed("9 modes", mode_paths, torch, dev)
-
-    # -- 10. IQN on Seaquest ----------------------------------------------------
-    launches += timed("10 seaquest", seaquest_path, torch, dev)
-
-    # -- 11. Breakout, Freeway, Space Invaders -----------------------------------
-    launches += timed("11 games", game_paths, torch, dev)
-
-    # -- 12, 13. the flat-buffer path: CartPole fused, then a run that learns ----
-    timed("12 cartpole fused", cartpole_fused_path, torch, dev)
-    timed("13 cartpole learns", cartpole_learns, torch, dev)
-
-    # -- 14. SAC on Pendulum --------------------------------------------------------
-    timed("14 pendulum sac", pendulum_sac_path, torch, dev)
+    # -- 6-14. the fused training paths --------------------------------------------
+    launches = training_phases(torch, dev, timed)
 
     # -- 15-17. the offline family over the committed corpus ----------------------
     timed("15 bc_offline", offline_path, torch, dev, "bc_offline", None,
@@ -541,6 +542,42 @@ def main(only=None) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def training_phases(torch, dev, timed) -> int:
+    """Phases 6-14, each through ``timed(label, fn, *args, skipped=...)``
+    (main's, which runs a phase or skips it, returning ``skipped``).
+    Returns the gather launches.  ``tools/evaluator_capture_loop.py``
+    repeats them."""
+    # -- 6. the uniform path --------------------------------------------------
+    launches, tr, r = timed("6 uniform", main_path, torch, dev,
+                            skipped=(0, None, None))
+
+    # -- 7. where a chunk's time goes ----------------------------------------
+    if tr is not None:
+        timed("7 uniform breakdown", breakdown, torch, tr, r, "uniform")
+    del tr, r
+    torch.cuda.empty_cache()
+
+    # -- 8. the prioritized path, with evaluation, checkpoints and resume ---
+    launches += timed("8 per", per_path, torch, dev)
+
+    # -- 9. slice mode and n-step 3 -------------------------------------------
+    launches += timed("9 modes", mode_paths, torch, dev)
+
+    # -- 10. IQN on Seaquest ----------------------------------------------------
+    launches += timed("10 seaquest", seaquest_path, torch, dev)
+
+    # -- 11. Breakout, Freeway, Space Invaders -----------------------------------
+    launches += timed("11 games", game_paths, torch, dev)
+
+    # -- 12, 13. the flat-buffer path: CartPole fused, then a run that learns ----
+    timed("12 cartpole fused", cartpole_fused_path, torch, dev)
+    timed("13 cartpole learns", cartpole_learns, torch, dev)
+
+    # -- 14. SAC on Pendulum --------------------------------------------------------
+    timed("14 pendulum sac", pendulum_sac_path, torch, dev)
+    return launches
 
 
 def other_ring_checks(torch, dev, g) -> None:
@@ -2679,11 +2716,10 @@ def gif_frames(data: bytes):
 def jax_pong_policy(torch, dev) -> None:
     """Phase 24: the committed JAX-trained Pong policy, loaded by
     load_jax_policy into the port's bf16 AtariCNN, evaluated by the
-    dqn_pong example's own evaluator; then play_pong's main into a GIF."""
+    dqn_pong example's own evaluator."""
     from border_tpu_torch.agents import DQN, DQNConfig
     from border_tpu_torch.convert import load_jax_policy
     from border_tpu_torch.envs import make
-    from border_tpu_torch.examples import play_pong
     from border_tpu_torch.models import AtariCNN
     from border_tpu_torch.train import Evaluator
 
@@ -2743,22 +2779,6 @@ def jax_pong_policy(torch, dev) -> None:
         fail(f"the JAX-trained Pong policy scored {score} on the card, under "
              f"{PONG_TARGET}")
 
-    work = tempfile.mkdtemp(prefix="border_smoke_play_")
-    try:
-        gif = os.path.join(work, "play.gif")
-        t0 = time.perf_counter()
-        play_pong.main(["--no-render", "--gif", gif, "--steps", str(PLAY_STEPS)])
-        play_s = time.perf_counter() - t0
-        with open(gif, "rb") as f:
-            data = f.read()
-        w, h, n = gif_frames(data)
-        if (w, h) != FRAME_HW[::-1] or not 0 < n <= PLAY_STEPS:
-            fail(f"play_pong's GIF is {w}x{h} with {n} images")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    print(f"play_pong: {PLAY_STEPS} steps into a GIF of {n} {w}x{h} images "
-          f"({len(data)} bytes) in {play_s:.1f} s, read back", flush=True)
-
 
 class _MlflowStub:
     """An in-process MLflow REST stub on 127.0.0.1: records every request."""
@@ -2812,12 +2832,80 @@ class _MlflowStub:
         return [b for m, p, b in self.requests if m == "POST" and p.endswith(endpoint)]
 
 
+def _example(torch, name: str, argv, seconds: dict):
+    """``border_tpu_torch.examples.<name>.main(argv)`` on its default device
+    (the card): its result and what it printed (kept off this script's
+    output, whose lines a caller reads); its seconds into ``seconds``."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"border_tpu_torch.examples.{name}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    return res, out.getvalue()
+
+
+def _printed(name: str, text: str, pattern: str) -> list:
+    """The numbers of ``pattern``'s first match in what example ``name``
+    printed: each must parse and be finite."""
+    import re
+
+    m = re.search(pattern, text)
+    vals = [float(g.replace(",", "")) for g in m.groups()] if m else []
+    if not vals or not all(math.isfinite(v) for v in vals):
+        fail(f"{name} example: no finite {pattern!r} in what it printed: "
+             f"{text[-800:]!r}")
+    return vals
+
+
+def _networks(state) -> list:
+    """The networks (modules) of an agent state."""
+    from torch import nn
+
+    return [getattr(state, f.name) for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), nn.Module)]
+
+
+def _check_agent(torch, name: str, state, agent=None, model_dir=None) -> None:
+    """Every network of ``state`` on the card and finite; with ``agent``,
+    the model it saved under ``model_dir`` (``Agent.save``) loaded into a
+    zeroed copy of ``state`` must give finite networks on the card that
+    are not all zero."""
+    import copy
+
+    nets = _networks(state)
+    if not nets or not all(p.is_cuda and torch.isfinite(p).all()
+                           for n in nets for p in n.parameters()):
+        fail(f"{name} example: parameters not finite or not on the card")
+    if agent is None:
+        return
+    template = copy.deepcopy(state)
+    with torch.no_grad():
+        for n in _networks(template):
+            for p in n.parameters():
+                p.zero_()
+    loaded = agent.load(template, model_dir)
+    params = [p for n in _networks(loaded) for p in n.parameters()]
+    if not (all(p.is_cuda and torch.isfinite(p).all() for p in params)
+            and any(bool(p.ne(0).any()) for p in params)):
+        fail(f"{name} example: the model saved under {model_dir} does not "
+             f"read back into a state on the card")
+
+
 def examples_on_card(torch, dev) -> int:
-    """Phase 25: the examples' main(argv) at their default width, each cut
-    to a few update chunks.  Returns the gather launches (dqn_pong's)."""
+    """Phase 25: the examples' main(argv) at their default width and device
+    (cuda), each cut in depth through its own options.  Returns the gather
+    launches (dqn_pong's, async_dqn_pong's, iqn_seaquest's and
+    dqn_pong_host's)."""
     import numpy as np
 
-    from border_tpu_torch.agents import DQNConfig
+    from border_tpu_torch.agents import DQN, SAC, DQNConfig, SACConfig
+    from border_tpu_torch.data import OfflineDataset
     from border_tpu_torch.examples import (convert_policy, dqn_cartpole, dqn_pong,
                                            offline_fetch_reacher)
     from border_tpu_torch.ops import frame_gather
@@ -2838,9 +2926,7 @@ def examples_on_card(torch, dev) -> int:
                  f"launches")
         if not any(f.startswith("events.out.tfevents") for f in os.listdir(out)):
             fail("dqn_pong example: no TensorBoard event file")
-        if not all(p.is_cuda and torch.isfinite(p).all()
-                   for p in r.agent_state.params.parameters()):
-            fail("dqn_pong example: parameters not finite or not on the card")
+        _check_agent(torch, "dqn_pong", r.agent_state)
         print(f"example dqn_pong: {r.opt_steps} updates after the 50,000-step "
               f"warmup, {launches} gather launches = updates, TensorBoard "
               f"events written, in {seconds['dqn_pong']:.1f} s", flush=True)
@@ -2918,13 +3004,108 @@ def examples_on_card(torch, dev) -> int:
         r = offline_fetch_reacher.main(["--dataset", "fetch-reacher-medium-v0",
                                         "--max-opts", "250"])
         seconds["offline_fetch_reacher"] = time.perf_counter() - t0
-        if r.opt_steps != 250 or not all(
-                p.is_cuda and torch.isfinite(p).all()
-                for p in r.agent_state.actor_params.parameters()):
+        if r.opt_steps != 250:
             fail(f"offline_fetch_reacher example: {r.opt_steps} updates")
+        _check_agent(torch, "offline_fetch_reacher", r.agent_state)
         print(f"example offline_fetch_reacher: IQL, 250 updates over "
               f"fetch-reacher-medium-v0 in {seconds['offline_fetch_reacher']:.1f} s",
               flush=True)
+        _free(torch)
+
+        # the pixel examples: their warmups and EXAMPLE_OPTS updates; the
+        # gather launches once a sample
+        for name, argv, opts, saves in (
+                ("async_dqn_pong", ["--out", os.path.join(work, "async")],
+                 EXAMPLE_OPTS["async_dqn_pong"], True),
+                ("iqn_seaquest", ["--out", os.path.join(work, "iqn")],
+                 EXAMPLE_OPTS["iqn_seaquest"], False),
+                ("dqn_pong_host", [], EXAMPLE_OPTS["dqn_pong_host"], False)):
+            frame_gather.gather_frames.launches = 0
+            r, text = _example(torch, name, argv + ["--max-opts", str(opts)],
+                               seconds)
+            n = frame_gather.gather_frames.launches
+            launches += n
+            if r.opt_steps != opts or n != opts:
+                fail(f"{name} example: {r.opt_steps} updates, {n} gather launches")
+            _check_agent(torch, name, r.agent_state,
+                         DQN(DQNConfig()) if saves else None,
+                         os.path.join(argv[1], "best") if saves else None)
+            if saves and len(r.eval_history) != 1:
+                fail(f"{name} example: evaluations {r.eval_history}")
+            pattern = {"async_dqn_pong": r"samples/s=([\d,.]+)\s+opt/s=([\d,.]+)",
+                       "iqn_seaquest": r"opt_steps=(\d+) samples/s=([\d,.]+)",
+                       "dqn_pong_host": r"samples/s ([\d,.]+)\s+host_wait_frac ([\d.]+)"}
+            _printed(name, text, pattern[name])
+            print(f"example {name}: {r.opt_steps} updates after its warmup, {n} "
+                  f"gather launches = updates, evaluations {r.eval_history}, in "
+                  f"{seconds[name]:.1f} s", flush=True)
+            del r
+            _free(torch)
+
+        # the MLP examples: an evaluation at the end, the best model saved
+        for name, agent in (("dqn_cartpole_native", DQN(DQNConfig())),
+                            ("sac_pendulum", SAC(SACConfig())),
+                            ("sac_reacher", SAC(SACConfig()))):
+            out = os.path.join(work, name)
+            r, text = _example(torch, name, ["--max-opts", str(EXAMPLE_OPTS[name]),
+                                             "--out", out], seconds)
+            if r.opt_steps != EXAMPLE_OPTS[name] or len(r.eval_history) != 1:
+                fail(f"{name} example: {r.opt_steps} updates, evaluations "
+                     f"{r.eval_history}")
+            _check_agent(torch, name, r.agent_state, agent, os.path.join(out, "best"))
+            ret, rate = _printed(name, text, r"best eval return=([-\d.]+)\s+"
+                                 r"samples/s=([\d,.]+)")
+            print(f"example {name}: {r.opt_steps} updates, best evaluation "
+                  f"{ret}, {rate} samples/s, the best model read back, in "
+                  f"{seconds[name]:.1f} s", flush=True)
+
+        # offline_pendulum: its behavior corpus built (cut), then IQL
+        corpus = os.path.join(work, "pendulum_corpus.npz")
+        r, text = _example(torch, "offline_pendulum", [
+            "--dataset", corpus, "--corpus-steps", str(EXAMPLE_CORPUS_STEPS),
+            "--max-opts", str(EXAMPLE_OPTS["offline_pendulum"])], seconds)
+        n = len(OfflineDataset.from_npz(corpus))
+        if (n != EXAMPLE_CORPUS_STEPS or r.opt_steps != EXAMPLE_OPTS["offline_pendulum"]
+                or _printed("offline_pendulum", text, r"dataset: (\d+) transitions") != [n]):
+            fail(f"offline_pendulum example: a corpus of {n} transitions, "
+                 f"{r.opt_steps} updates")
+        _check_agent(torch, "offline_pendulum", r.agent_state)
+        _printed("offline_pendulum", text, r"opt/s=([\d,.]+)")
+        print(f"example offline_pendulum: a corpus of {n} transitions built and "
+              f"read back, {r.opt_steps} IQL updates, in "
+              f"{seconds['offline_pendulum']:.1f} s", flush=True)
+
+        # offline_pendulum_medium: the committed corpus, each of its agents
+        for agent in ("bc", "awac", "iql"):
+            name = f"offline_pendulum_medium --agent {agent}"
+            r, text = _example(torch, "offline_pendulum_medium", [
+                "--agent", agent, "--max-opts",
+                str(EXAMPLE_OPTS["offline_pendulum_medium"])], seconds)
+            seconds[name] = seconds.pop("offline_pendulum_medium")
+            if (r.opt_steps != EXAMPLE_OPTS["offline_pendulum_medium"]
+                    or len(r.eval_history) != 1):
+                fail(f"{name} example: {r.opt_steps} updates, evaluations "
+                     f"{r.eval_history}")
+            _check_agent(torch, name, r.agent_state)
+            ret, norm = _printed(name, text, rf"{agent}: eval return ([-\d.]+) "
+                                 r"\(normalized ([-\d.]+)")
+            print(f"example {name}: {r.opt_steps} updates over pendulum-medium-v0, "
+                  f"evaluation {ret} (normalized {norm}), in {seconds[name]:.1f} s",
+                  flush=True)
+
+        # play_pong: the committed JAX-trained policy into a GIF
+        gif = os.path.join(work, "play.gif")
+        returns, text = _example(torch, "play_pong", [
+            "--no-render", "--gif", gif, "--steps", str(PLAY_STEPS)], seconds)
+        with open(gif, "rb") as f:
+            data = f.read()
+        w, h, n = gif_frames(data)
+        if ((w, h) != FRAME_HW[::-1] or not 0 < n <= PLAY_STEPS
+                or f"gif: {gif}" not in text):
+            fail(f"play_pong example: a GIF of {w}x{h} with {n} images")
+        print(f"example play_pong: {PLAY_STEPS} steps into a GIF of {n} {w}x{h} "
+              f"images ({len(data)} bytes), read back, episode returns {returns}, "
+              f"in {seconds['play_pong']:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print("examples seconds: " + json.dumps(seconds), flush=True)
@@ -3097,7 +3278,7 @@ def sharded_world_of_one(torch, dev) -> dict:
 
 
 def sharded_rank(spec_path: str, rank: int) -> None:
-    """A rank of phase 26 (b) and (c): two ranks on the one card over gloo.
+    """A rank of phase 26 (b), (c) and (d): two ranks on the one card over gloo.
     Writes ``rank<r>.json`` (and its parameters) into the spec's directory."""
     import torch
     import torch.distributed as dist
@@ -3186,14 +3367,91 @@ def sharded_rank(spec_path: str, rank: int) -> None:
         res["c"].update(chunk_s=time.perf_counter() - t0, loss=_loss_of(metrics),
                         env_steps=GSPMD_ENV_STEPS, updates=GSPMD_UPDATES + 1,
                         gather_launches=frame_gather.gather_frames.launches)
+        del g, ga, gv, gb
+        torch.cuda.empty_cache()
+        res["d"] = gspmd_data_parallel(torch, dev, rank)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
 
 
+def gspmd_data_parallel(torch, dev, rank: int) -> dict:
+    """Phase 26 (d), on a rank of the two: GSPMDTrainer at dp=2, tp=1, the
+    ring's env columns split over ``actors`` (ActorShardedFrames, half the
+    ring a rank) and the env step dp-fold.  An env chunk of GSPMD_ENV_STEPS
+    steps beside the plain Trainer's from the same states and generator
+    state: the rank's env rows and ring columns must equal the plain
+    run's bitwise.  Then the first update from the same generator state
+    against the plain Trainer's (DQN's update draws nothing: the two
+    differ only by the order of the gradient's sums), then a chunk of
+    GSPMD_UPDATES updates."""
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.parallel import GSPMDTrainer, make_dp_tp_mesh
+    from border_tpu_torch.parallel.gspmd import ActorShardedFrames
+    from border_tpu_torch.replay import FrameReplayBuffer
+    from border_tpu_torch.train import Trainer
+
+    cfg = _pong_config(steps_per_chunk=GSPMD_ENV_STEPS)
+    g = GSPMDTrainer(make("Pong-v0"), _pixel_dqn(),
+                     FrameReplayBuffer(CAPACITY, NUM_ENVS), cfg,
+                     mesh=make_dp_tp_mesh(2, 1))
+    plain = Trainer(make("Pong-v0"), _pixel_dqn(),
+                    FrameReplayBuffer(CAPACITY, NUM_ENVS), cfg)
+    pa, pv, pb = plain.init_states(0, 1)
+    ga, gv, gb = g.init_states(0, 1)
+    pgen = plain._loop_generator(0)
+    ggen = torch.Generator(device=dev)
+    ggen.set_state(pgen.get_state())
+    pa, pv, pb = plain._chunk(pa, pv, pb, pgen, False)[:3]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ga, gv, gb = g._chunk(ga, gv, gb, ggen, False)[:3]  # the dp-fold env steps
+    torch.cuda.synchronize()
+    env_s = time.perf_counter() - t0
+    lo, k = rank * g.local_envs, g.local_envs
+    differ = [f.name for f in dataclasses.fields(gb)
+              if torch.is_tensor(getattr(gb, f.name)) and f.name != "counts"
+              and not torch.equal(getattr(gb, f.name), getattr(pb, f.name)[lo:lo + k])]
+    if not torch.equal(gv.obs, pv.obs[lo:lo + k]):
+        differ.append("obs")
+    ring_gb = sum(t.numel() * t.element_size() for t in (gb.frames, gb.act, gb.reward,
+                                                         gb.terminated, gb.truncated,
+                                                         gb.age)) / 1e9
+    ggen.set_state(pgen.get_state())
+    g.updates_per_chunk = plain.updates_per_chunk = 1
+    before = {k_: t.clone() for k_, t in pa.params.state_dict().items()}
+    pa = plain._update_scan(pa, pb, pgen)[0]
+    frame_gather.gather_frames.launches = 0
+    ga, gb, _ = g._update_scan(ga, gb, ggen)
+    got = ga.params.state_dict()
+    lr = float(ga.opt_state.param_groups[0]["lr"])
+    diffs = torch.cat([(got[k_] - t).abs().reshape(-1)
+                       for k_, t in pa.params.state_dict().items()])
+    moved = max((pa.params.state_dict()[k_] - t).abs().max().item()
+                for k_, t in before.items())
+    out = {"local_envs": k, "dp": g.dp, "tp": g.tp,
+           "sharded_ring": isinstance(g.buffer, ActorShardedFrames),
+           "ring_gb": ring_gb, "env_chunk_s": env_s, "differ_from_plain": differ,
+           "lr": lr, "moved": moved, "max_abs_diff": diffs.max().item(),
+           "frac_diff_over_1e-3_lr": (diffs > 1e-3 * lr).float().mean().item()}
+    del plain, pa, pv, pb, before
+    torch.cuda.empty_cache()
+    g.updates_per_chunk = GSPMD_UPDATES
+    t0 = time.perf_counter()
+    ga, gv, gb, metrics, _, _ = g._chunk(ga, gv, gb, ggen, True)
+    torch.cuda.synchronize()
+    out.update(chunk_s=time.perf_counter() - t0, loss=_loss_of(metrics),
+               env_steps=2 * GSPMD_ENV_STEPS, updates=GSPMD_UPDATES + 1,
+               gather_launches=frame_gather.gather_frames.launches,
+               params_sum=float(sum(t.double().sum() for t in
+                                    ga.params.state_dict().values())))
+    return out
+
+
 def start_two_ranks():
-    """Phase 26 (b) and (c): two ranks of this script on the one card,
+    """Phase 26 (b), (c) and (d): two ranks of this script on the one card,
     started (imports, process group) before (a) and waiting for its end."""
     work = tempfile.mkdtemp(prefix="border_smoke_gloo_")
     spec = os.path.join(work, "spec.json")
@@ -3219,7 +3477,7 @@ def finish_two_ranks(torch, work, procs) -> dict:
     except subprocess.TimeoutExpired:
         errs.append("the two ranks outlasted 300 s")
     if errs:
-        fail("sharded (b, c): " + "\n".join(errs))
+        fail("sharded (b, c, d): " + "\n".join(errs))
     ranks = []
     for r in range(2):
         with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -3267,12 +3525,35 @@ def finish_two_ranks(torch, work, procs) -> dict:
           f"(bound {GSPMD_MAX_FRAC}); a chunk of {GSPMD_ENV_STEPS} env steps and "
           f"{GSPMD_UPDATES} updates in {c[0]['chunk_s']:.2f} s, loss "
           f"{c[0]['loss']:.6g}", flush=True)
-    launches = sum(x["gather_launches"] for x in b) + sum(x["gather_launches"] for x in c)
-    return {"b": b, "c": c, "launches_total": launches}
+    d = [r["d"] for r in ranks]
+    for x in d:
+        if (not x["sharded_ring"] or (x["dp"], x["tp"]) != (2, 1)
+                or x["local_envs"] != NUM_ENVS // 2 or x["differ_from_plain"]
+                or x["max_abs_diff"] > 2 * x["lr"] * (1 + 1e-3)
+                or x["frac_diff_over_1e-3_lr"] > GSPMD_MAX_FRAC
+                or x["moved"] < 0.5 * x["lr"]
+                or not math.isfinite(x["loss"])
+                or x["gather_launches"] != x["updates"]):
+            fail(f"sharded (d): {x}")
+    if d[0]["params_sum"] != d[1]["params_sum"]:
+        fail(f"sharded (d): the replicated parameters differ across the ranks "
+             f"(sums {d[0]['params_sum']!r}, {d[1]['params_sum']!r})")
+    print(f"sharded (d): GSPMDTrainer dp=2 tp=1 over gloo on the one card, "
+          f"{NUM_ENVS // 2} envs and the ring's env columns ({d[0]['ring_gb']:.3f} "
+          f"GB) a rank: {GSPMD_ENV_STEPS} dp-fold env steps bitwise the plain "
+          f"Trainer's rows and ring columns ({d[0]['env_chunk_s']:.2f} s); after "
+          f"the first update max |GSPMD - plain Trainer| {d[0]['max_abs_diff']:.3g} "
+          f"(bound 2 lr = {2 * d[0]['lr']:.3g}), "
+          f"{max(x['frac_diff_over_1e-3_lr'] for x in d):.5f} of the elements "
+          f"beyond 1e-3 lr (bound {GSPMD_MAX_FRAC}); a chunk of {GSPMD_ENV_STEPS} "
+          f"env steps and {GSPMD_UPDATES} updates in {d[0]['chunk_s']:.2f} s, "
+          f"loss {d[0]['loss']:.6g}", flush=True)
+    launches = sum(x["gather_launches"] for part in (b, c, d) for x in part)
+    return {"b": b, "c": c, "d": d, "launches_total": launches}
 
 
 def sharded_example(torch) -> dict:
-    """Phase 26 (d): the sharded_dqn example through main(argv), a world of
+    """Phase 26 (e): the sharded_dqn example through main(argv), a world of
     one over NCCL, its defaults' width, --max-opts cut to 1,000."""
     import torch.distributed as dist
 
@@ -3284,8 +3565,8 @@ def sharded_example(torch) -> dict:
     if (r.opt_steps < 1000 or not r.eval_history or dist.is_initialized()
             or not all(p.is_cuda and torch.isfinite(p).all()
                        for p in r.agent_state.params.parameters())):
-        fail(f"sharded (d): {r.opt_steps} updates, evaluations {r.eval_history}")
-    print(f"sharded (d): the sharded_dqn example, a world of one over NCCL, "
+        fail(f"sharded (e): {r.opt_steps} updates, evaluations {r.eval_history}")
+    print(f"sharded (e): the sharded_dqn example, a world of one over NCCL, "
           f"{r.opt_steps} updates, evaluation {r.eval_history}, in {seconds:.1f} s",
           flush=True)
     return {"updates": r.opt_steps, "seconds": seconds,
@@ -3304,7 +3585,7 @@ def sharded_paths(torch, dev) -> int:
         t["a"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         bc = finish_two_ranks(torch, work, procs)
-        t["b_c"] = time.perf_counter() - t0
+        t["b_c_d"] = time.perf_counter() - t0
     finally:  # a failed check leaves no rank behind
         for p in procs:
             if p.poll() is None:
@@ -3312,10 +3593,11 @@ def sharded_paths(torch, dev) -> int:
                 p.wait()
         shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
-    d = sharded_example(torch)
-    t["d"] = time.perf_counter() - t0
+    e = sharded_example(torch)
+    t["e"] = time.perf_counter() - t0
     print("sharded path numbers: " + json.dumps(
-        {"a": a, "b": bc["b"], "c": bc["c"], "d": d, "seconds": t}), flush=True)
+        {"a": a, "b": bc["b"], "c": bc["c"], "d": bc["d"], "e": e, "seconds": t}),
+        flush=True)
     return a["launches_total"] + bc["launches_total"]
 
 

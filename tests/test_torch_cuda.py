@@ -971,6 +971,67 @@ def test_uncapturable_update_raises_and_does_not_fall_back():
     assert int(ag.counts[0]) == WARMUP < tr.updates_per_chunk
 
 
+class _Cycle:
+    """Holds ``held`` in a reference cycle: only the collector frees it."""
+
+    def __init__(self, held):
+        self.me, self.held = self, held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guarded", [True, False])
+def test_a_graph_the_collector_frees_inside_a_capture(guarded, monkeypatch):
+    """ROADMAP C.6: a captured graph held only by a reference cycle, freed
+    by a collection that starts while the Pendulum evaluation's step is
+    being captured, invalidates that capture ('operation failed due to a
+    previous error during capture', at whichever operator comes next).
+    ``LoopGraph._capture`` collects before the capture and keeps the
+    collector off during it: the evaluation captures, and its record is the
+    eager evaluation's.  Without that guard (the capture as it was) the
+    evaluation raises GraphCaptureError."""
+    import contextlib
+    import gc
+
+    from border_tpu_torch.agents import SAC, SACConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.train import Evaluator, graphs
+
+    _cuda()
+    if not guarded:
+        monkeypatch.setattr(graphs, "no_collection", contextlib.nullcontext)
+    dead = []
+
+    class Dropping(SAC):
+        def select_action_eval(self, state, obs, gen=None):
+            if dead and torch.cuda.is_current_stream_capturing():
+                _Cycle(dead.pop())  # garbage at once, for the next collection
+            return super().select_action_eval(state, obs, gen)
+
+    agent = Dropping(SACConfig(actor_hidden=(32, 32), critic_hidden=(32, 32)))
+    first = Evaluator(make("Pendulum-v1"), 4, 16)
+    st = agent.init(0, first.vec.observation_space, first.vec.action_space)
+    first.evaluate(agent, st)  # captures and replays its step's graph
+    dead.append(first._graph.graph)
+    first._graph = None
+    ev = Evaluator(make("Pendulum-v1"), 4, 16)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)  # a collection at the next allocations
+    try:
+        if guarded:
+            got = ev.evaluate(agent, st)[1]
+        else:
+            with pytest.raises(graphs.GraphCaptureError,
+                               match="previous error during capture"):
+                ev.evaluate(agent, st)
+    finally:
+        gc.set_threshold(*threshold)
+    assert not dead  # dropped inside the capture
+    if guarded:
+        want = Evaluator(make("Pendulum-v1"), 4, 16,
+                         cuda_graphs=False).evaluate(agent, st)[1]
+        assert dict(got.items()) == dict(want.items())
+
+
 # -- CUDA graphs: the host path, the evaluators, async, sharded ----------------
 
 def _recording_native(n, env_id, seed):

@@ -14,7 +14,9 @@ or of the value (the cosine, whose ``cos`` comes from torch on one side and
 numpy on the other).
 """
 
+import contextlib
 import dataclasses
+import gc
 import types
 
 import numpy as np
@@ -52,6 +54,7 @@ from border_tpu_torch.train.graphs import (
     _leaves,
     add_metrics_,
     copy_into,
+    no_collection,
 )
 from border_tpu_torch.train.trainer import example_transition, resolve_cuda_graphs
 from border_tpu_torch.utils.counters import (
@@ -223,6 +226,48 @@ def test_counted_wrappers_count_captures_apart():
     gather_frames(torch.zeros(4, 2, 2, dtype=torch.uint8),
                   torch.zeros(1, 2, dtype=torch.int32))
     assert (gather_frames.launches, gather_frames.captured) == before
+
+
+class _Cycle:
+    """An object in a reference cycle: only the collector frees it."""
+
+    freed = 0
+
+    def __init__(self):
+        self.me = self
+
+    def __del__(self):
+        _Cycle.freed += 1
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+@pytest.mark.parametrize("raises", [False, True])
+def test_no_collection_collects_first_then_holds_the_collector(enabled, raises):
+    """A capture's guard: the cyclic garbage made before it is freed on
+    entry, none made inside it is freed there (an allocation past the
+    threshold starts no collection), and the collector's switch is as it
+    was after the block, also when the block raises."""
+    was = gc.isenabled()
+    threshold = gc.get_threshold()
+    (gc.enable if enabled else gc.disable)()
+    gc.set_threshold(1)
+    try:
+        _Cycle()
+        freed = _Cycle.freed
+        with pytest.raises(RuntimeError) if raises else contextlib.nullcontext():
+            with no_collection():
+                assert _Cycle.freed == freed + 1 and not gc.isenabled()
+                _Cycle()
+                junk = [[i] for i in range(1_000)]  # past the threshold
+                assert _Cycle.freed == freed + 1 and junk
+                if raises:
+                    raise RuntimeError("a failed capture")
+        assert gc.isenabled() == enabled
+        gc.collect()
+        assert _Cycle.freed == freed + 2
+    finally:
+        gc.set_threshold(*threshold)
+        (gc.enable if was else gc.disable)()
 
 
 # -- the card's counter formulation, on CPU tensors ----------------------------

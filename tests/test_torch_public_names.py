@@ -1,7 +1,8 @@
 """Public names of the JAX package that the port carries too, held against
 the JAX ones on the CPU: ``Space.sample`` of Discrete, Box and Dict,
-``envs.pixel.to_gray_84``, ``Agent.model_info`` and
-``errors.EnvironmentError_``.
+``envs.pixel.to_gray_84``, ``Agent.model_info``,
+``errors.EnvironmentError_``, ``agents.common.gamma_not_done`` (bitwise,
+float32, for boolean and float flags) and ``FrameReplayBuffer.size_attr``.
 
 Tolerances: the samples come from different generators (a JAX key, a
 ``torch.Generator``), so what is compared is what a caller relies on:
@@ -20,11 +21,15 @@ import pytest
 import torch
 
 from border_tpu import errors as jerrors
+from border_tpu.agents.common import gamma_not_done as jax_gamma_not_done
 from border_tpu.core import spaces as jspaces
 from border_tpu.envs.pixel import to_gray_84 as jax_to_gray_84
+from border_tpu.replay.frame_buffer import FrameReplayBuffer as JFrameReplayBuffer
 from border_tpu_torch import errors
+from border_tpu_torch.agents.common import gamma_not_done
 from border_tpu_torch.core import spaces
 from border_tpu_torch.envs.pixel import to_gray_84
+from border_tpu_torch.replay import FrameReplayBuffer
 
 N = 2000
 
@@ -118,3 +123,19 @@ def test_environment_error_matches_jax():
     assert issubclass(errors.EnvironmentError_, RuntimeError)
     with pytest.raises(errors.BorderTpuError, match="pool died"):
         raise errors.EnvironmentError_("pool died")
+
+
+@pytest.mark.parametrize("gamma", [0.99, 0.5, 1.0])
+@pytest.mark.parametrize("dtype", [np.bool_, np.float32])
+def test_gamma_not_done_matches_jax(gamma, dtype):
+    term = (np.random.default_rng(0).random(64) < 0.3).astype(dtype)
+    want = np.asarray(jax_gamma_not_done(gamma, jnp.asarray(term)))
+    got = gamma_not_done(gamma, torch.from_numpy(term))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_frame_buffer_size_attr_matches_jax():
+    port = FrameReplayBuffer(capacity=8, num_envs=2, device="cpu")
+    assert port.size_attr == JFrameReplayBuffer(capacity=8, num_envs=2).size_attr
+    assert isinstance(getattr(port.init(), port.size_attr), int)
