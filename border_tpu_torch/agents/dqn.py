@@ -42,6 +42,7 @@ from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.models.mlp import MLP, DuelingMLP
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils import profiling
 from border_tpu_torch.utils.counters import (
     Count,
     advance,
@@ -197,40 +198,45 @@ class DQN(Agent):
     ) -> Tuple[DQNState, Dict[str, Any], torch.Tensor]:
         c = self.config
         obs, act, next_obs, reward, terminated, _trunc, _ix, weight = batch.unpack()
-        act = act.long()
-        reward = reward.float()
-        if c.clip_reward is not None:
-            reward = torch.clamp(reward, -c.clip_reward, c.clip_reward)
+        cuda = reward.is_cuda
         net, tgt_net, opt = state.params, state.target_params, state.opt_state
 
-        with torch.no_grad():
-            q_next_tgt = tgt_net(next_obs)  # [B, A]
-            if c.double_dqn:
-                # argmax from the online net, value from the target net
-                a_star = torch.argmax(net(next_obs), dim=-1)
-            else:
-                a_star = torch.argmax(q_next_tgt, dim=-1)
-            q_next = q_next_tgt.gather(1, a_star[:, None])[:, 0]
-            target = reward + bootstrap_discount(c.gamma, batch) * q_next
+        with profiling.detail("update.forward", cuda):
+            act = act.long()
+            reward = reward.float()
+            if c.clip_reward is not None:
+                reward = torch.clamp(reward, -c.clip_reward, c.clip_reward)
+            with torch.no_grad():
+                q_next_tgt = tgt_net(next_obs)  # [B, A]
+                if c.double_dqn:
+                    # argmax from the online net, value from the target net
+                    a_star = torch.argmax(net(next_obs), dim=-1)
+                else:
+                    a_star = torch.argmax(q_next_tgt, dim=-1)
+                q_next = q_next_tgt.gather(1, a_star[:, None])[:, 0]
+                target = reward + bootstrap_discount(c.gamma, batch) * q_next
 
-        q = net(obs)
-        pred = q.gather(1, act[:, None])[:, 0]
-        per_elem = CRITIC_LOSSES[c.loss](pred, target)
-        loss = (per_elem if weight is None else weight * per_elem).mean()
+            q = net(obs)
+            pred = q.gather(1, act[:, None])[:, 0]
+            per_elem = CRITIC_LOSSES[c.loss](pred, target)
+            loss = (per_elem if weight is None else weight * per_elem).mean()
 
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        # averaged over the data-parallel group first, clipped after: in
-        # the JAX agent the clip is the first stage of the optimizer chain
-        maybe_pmean(net.parameters(), self.axis_group)
-        if c.max_grad_norm is not None:
-            clip_grads_(net.parameters(), c.max_grad_norm)
-        if c.lr_decay_steps:
-            set_lr(opt, self._lr(count(state, "n_opts")))
-        opt.step()
-        advance(state, "n_opts", 1)
-        periodic_polyak(count(state, "n_opts"), c.soft_update_interval, c.tau,
-                        net, tgt_net)
+        with profiling.detail("update.backward", cuda):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            # averaged over the data-parallel group first, clipped after: in
+            # the JAX agent the clip is the first stage of the optimizer chain
+            maybe_pmean(net.parameters(), self.axis_group)
+        with profiling.detail("update.optimizer", cuda):
+            if c.max_grad_norm is not None:
+                clip_grads_(net.parameters(), c.max_grad_norm)
+            if c.lr_decay_steps:
+                set_lr(opt, self._lr(count(state, "n_opts")))
+            opt.step()
+            advance(state, "n_opts", 1)
+        with profiling.detail("update.target", cuda):
+            periodic_polyak(count(state, "n_opts"), c.soft_update_interval,
+                            c.tau, net, tgt_net)
         pred = pred.detach()
         metrics = {
             "loss": loss.detach(),

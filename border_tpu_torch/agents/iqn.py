@@ -39,6 +39,7 @@ from border_tpu_torch.core import spaces
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.models.iqn import IQNNet
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils import profiling
 from border_tpu_torch.utils.counters import advance, count, linear_f32, new_counts
 from border_tpu_torch.utils.device import resolve_device
 
@@ -184,39 +185,44 @@ class IQN(Agent):
         three draws from ``gen``."""
         c = self.config
         obs, act, next_obs, reward, terminated, _trunc, _ix, weight = batch.unpack()
-        act = act.long()
-        reward = reward.float()
         B, dev = reward.shape[0], reward.device
-        if taus is None:
-            taus = tuple(sample_taus(s, gen, B, dev) for s in (
-                c.sample_percents_pred, c.sample_percents_tgt,
-                c.sample_percents_act))
-        taus_pred, taus_tgt, taus_act = taus
+        cuda = dev.type == "cuda"
         net, tgt_net, opt = state.params, state.target_params, state.opt_state
 
-        with torch.no_grad():
-            # next action: argmax of the τ-averaged target Q
-            a_star = torch.argmax(
-                self._avg_q(tgt_net, next_obs, gen, taus_act), dim=-1)
-            z_next = tgt_net(next_obs, taus_tgt)  # [B, Kt, A]
-            z_next_a = z_next.gather(
-                2, a_star[:, None, None].expand(-1, z_next.shape[1], 1)
-            )[..., 0]  # [B, Kt]
-            tgt = (reward[:, None]
-                   + bootstrap_discount(c.gamma, batch)[:, None] * z_next_a)
+        with profiling.detail("update.forward", cuda):
+            act = act.long()
+            reward = reward.float()
+            if taus is None:
+                taus = tuple(sample_taus(s, gen, B, dev) for s in (
+                    c.sample_percents_pred, c.sample_percents_tgt,
+                    c.sample_percents_act))
+            taus_pred, taus_tgt, taus_act = taus
+            with torch.no_grad():
+                # next action: argmax of the τ-averaged target Q
+                a_star = torch.argmax(
+                    self._avg_q(tgt_net, next_obs, gen, taus_act), dim=-1)
+                z_next = tgt_net(next_obs, taus_tgt)  # [B, Kt, A]
+                z_next_a = z_next.gather(
+                    2, a_star[:, None, None].expand(-1, z_next.shape[1], 1)
+                )[..., 0]  # [B, Kt]
+                tgt = (reward[:, None]
+                       + bootstrap_discount(c.gamma, batch)[:, None] * z_next_a)
 
-        z = net(obs, taus_pred)  # [B, Kp, A]
-        pred = z.gather(2, act[:, None, None].expand(-1, z.shape[1], 1))[..., 0]
-        per_sample = quantile_huber_loss(pred, tgt, taus_pred, c.kappa)
-        loss = (per_sample if weight is None else weight * per_sample).mean()
+            z = net(obs, taus_pred)  # [B, Kp, A]
+            pred = z.gather(2, act[:, None, None].expand(-1, z.shape[1], 1))[..., 0]
+            per_sample = quantile_huber_loss(pred, tgt, taus_pred, c.kappa)
+            loss = (per_sample if weight is None else weight * per_sample).mean()
 
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        maybe_pmean(net.parameters(), self.axis_group)
-        opt.step()
-        advance(state, "n_opts", 1)
-        periodic_polyak(count(state, "n_opts"), c.soft_update_interval, c.tau,
-                        net, tgt_net)
+        with profiling.detail("update.backward", cuda):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            maybe_pmean(net.parameters(), self.axis_group)
+        with profiling.detail("update.optimizer", cuda):
+            opt.step()
+            advance(state, "n_opts", 1)
+        with profiling.detail("update.target", cuda):
+            periodic_polyak(count(state, "n_opts"), c.soft_update_interval,
+                            c.tau, net, tgt_net)
         pred = pred.detach()
         # PER priority: mean TD over quantile pairs
         td_err = pred.mean(dim=1) - tgt.mean(dim=1)

@@ -16,7 +16,7 @@ The digest is of the source, so an edited source builds anew; a build
 writes a temporary file and renames it, so processes building at once never
 load a half-written library.  Each library is loaded with ``ctypes``.
 Nothing is built when the package is imported: the first caller that needs
-a library builds it.
+a library builds or loads it, in the span ``ops.build``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
+
+from border_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 CPP_SRC = Path(__file__).resolve().parents[2] / "cpp"
@@ -106,10 +108,11 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    source = _source(name)
-    if source.suffix == ".cu":
-        path = _compile(name, source, [_nvcc(), *NVCC_FLAGS])
-    else:
-        path = _compile(name, source, [cxx(), *CXX_FLAGS])
-    lib = _loaded[name] = ctypes.CDLL(str(path))
+    with profiling.span("ops.build", tag=name):
+        source = _source(name)
+        if source.suffix == ".cu":
+            path = _compile(name, source, [_nvcc(), *NVCC_FLAGS])
+        else:
+            path = _compile(name, source, [cxx(), *CXX_FLAGS])
+        lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib

@@ -33,7 +33,11 @@ before the capture instead.  Each replay adds the kernel launches its capture
 recorded to the counted wrappers' ``launches``
 (:data:`border_tpu_torch.ops.COUNTED`) and the collectives it recorded
 (an update's gradient all-reduce under NCCL) to
-:data:`border_tpu_torch.utils.collectives.counts`.
+:data:`border_tpu_torch.utils.collectives.counts`, and :data:`counts`
+counts every graph's warm-up iterations, captures and replays by name.
+The warm-up and the capture are the spans ``graph.warmup`` and
+``graph.capture``, and a run's first replay is timed on the host
+(:mod:`border_tpu_torch.utils.profiling`).
 
 ``run(n)`` takes any ``n`` from call to call: a host-env iteration replays
 its device step once and its update burst as often as the iteration's
@@ -46,9 +50,11 @@ seed.  A new generator object would need a new capture.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
+import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -57,9 +63,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from border_tpu_torch.errors import BorderTpuError, ConfigError
 from border_tpu_torch.ops import COUNTED
-from border_tpu_torch.utils import collectives
+from border_tpu_torch.utils import collectives, profiling
 
 WARMUP = 3
+# ``counts[(graph name, "warmups" | "captures" | "replays")]``: the eager
+# warm-up iterations, captures and replays of every LoopGraph so far; a
+# capture counted after set-up names the graph that was built again
+counts: collections.Counter = collections.Counter()
 
 
 class GraphCaptureError(BorderTpuError, RuntimeError):
@@ -193,6 +203,10 @@ class LoopGraph:
         self.stream: Optional[torch.cuda.Stream] = None
         self.launches_each: List[tuple] = []
         self.collectives_each: Dict[tuple, int] = {}
+        # the timed edges of the update split captured with the body
+        # (tracing level ``detail`` at capture time), which every replay
+        # records: :mod:`border_tpu_torch.utils.profiling`
+        self.edges: List[tuple] = []
         # the caller's fixed tensors the body writes: its device sums and,
         # for a prefetching body, the batch it carries between iterations
         self.sums: Any = None
@@ -208,22 +222,35 @@ class LoopGraph:
         return self.stream
 
     def run(self, n: int) -> None:
+        if n <= 0:
+            return
         if self.graph is None:
+            profiling.graph_ran(built=True)
             w = min(n, self.warmup - self.eager_done)
             if w > 0:
-                s = self._side_stream()
-                s.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(s):
-                    for _ in range(w):
-                        self.step()
-                torch.cuda.current_stream().wait_stream(s)
+                with profiling.span("graph.warmup", tag=self.name):
+                    s = self._side_stream()
+                    s.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(s):
+                        for _ in range(w):
+                            self.step()
+                    torch.cuda.current_stream().wait_stream(s)
                 self.eager_done += w
+                counts[self.name, "warmups"] += w
                 n -= w
             if n == 0:
                 return
-            self._capture()
-        for _ in range(n):
+            with profiling.span("graph.capture", tag=self.name):
+                self._capture()
+            counts[self.name, "captures"] += 1
+        # the first replay's launch is timed: a full launch queue stalls it
+        t = time.perf_counter_ns()
+        self.graph.replay()
+        first_ns = time.perf_counter_ns() - t
+        for _ in range(n - 1):
             self.graph.replay()
+        counts[self.name, "replays"] += n
+        profiling.graph_ran(first_ns, self.edges)
         for fn, k in self.launches_each:
             fn.launches += k * n
         for key, k in self.collectives_each.items():
@@ -236,6 +263,7 @@ class LoopGraph:
         before = [fn.captured for fn in COUNTED]
         before_collectives = collectives.captured.copy()
         last = _LastOp()
+        profiling.take_captured()  # what a failed capture left
         try:
             with no_collection(), torch.cuda.graph(graph, stream=self._side_stream()):
                 with last:
@@ -257,4 +285,5 @@ class LoopGraph:
                               for fn, b in zip(COUNTED, before)
                               if fn.captured != b]
         self.collectives_each = dict(collectives.captured - before_collectives)
+        self.edges = profiling.take_captured()
         self.graph = graph

@@ -22,7 +22,9 @@ The C++ env step overlaps the burst because a ``ctypes`` call releases the
 interpreter lock; a Python env (``PyVecEnv``) holds it and contends with
 the main thread's dispatch.  ``host_wait_frac`` (the share of wall time
 spent waiting for env results) is recorded at chunk cadence beside
-``samples_per_sec`` and ``env_steps``.
+``samples_per_sec`` and ``env_steps``, from the span ``host.collect_wait``
+(:mod:`border_tpu_torch.utils.profiling`), which is timed at every
+tracing level.
 
 Frame mode (uint8 stacked-frame obs and a ``FrameReplayBuffer``): only the
 newest 84×84 frame crosses host→device each step; the device keeps its own
@@ -73,6 +75,7 @@ from border_tpu_torch.train.trainer import (
     param_stats_record,
     update_burst,
 )
+from border_tpu_torch.utils import profiling
 from border_tpu_torch.utils.counters import counts_of, set_mirrors
 from border_tpu_torch.utils.device import DeviceLike, as_generator, resolve_device
 
@@ -450,7 +453,7 @@ class HostEnvTrainer:
             # from here on
             io.upload("obs", self.env.reset())
             ep_len = np.zeros(c.num_envs, np.int32)  # steps into each episode
-            wait_time = 0.0
+            wait_ns = 0
             t_window = t0
             window_steps = 0
 
@@ -474,9 +477,9 @@ class HostEnvTrainer:
                             agent_state, buf_state, gen, m)
 
                 # collect the host step started last iteration
-                t_w = time.perf_counter()
-                step = feeder.collect()
-                wait_time += time.perf_counter() - t_w
+                with profiling.span("host.collect_wait", timed=True) as waited:
+                    step = feeder.collect()
+                wait_ns += waited.ns
 
                 # push (obs_t, act_t, …), advance the device obs, select
                 self._stage(io, step, pending_ep_len)
@@ -504,9 +507,9 @@ class HostEnvTrainer:
                     rec, _ = metrics_to_host(metrics)
                     rec["env_steps"] = float(env_steps)
                     rec["samples_per_sec"] = window_steps / (now - t_window)
-                    rec["host_wait_frac"] = wait_time / (now - t_window)
+                    rec["host_wait_frac"] = wait_ns / 1e9 / (now - t_window)
                     self.recorder.store(rec)
-                    t_window, window_steps, wait_time = now, 0, 0.0
+                    t_window, window_steps, wait_ns = now, 0, 0
 
                 if opt_steps >= next_flush:
                     self.recorder.flush(opt_steps)

@@ -15,7 +15,10 @@ for it, and the CPU path is always eager.  The counters (env steps, write
 cursor, draw range, update count) advance on the device on the card and as
 host ints on the CPU, and the chunk's metrics are summed on the device, so
 a chunk costs one device→host sync, at its end: on the card it also brings
-the host mirrors of the counters up to date.
+the host mirrors of the counters up to date.  Each chunk is traced
+(:mod:`border_tpu_torch.utils.profiling`): the span ``chunk`` with its env
+and update phases, timed on the device, and the host's ``sync_counters``
+and ``metrics_to_host``.
 
 The Python shell around the chunks handles the cadences: warmup on buffer
 fill, periodic evaluation with best-model selection, model saves, record
@@ -46,6 +49,7 @@ from border_tpu_torch.train.graphs import (
     copy_into,
     resolve_cuda_graphs,
 )
+from border_tpu_torch.utils import profiling
 from border_tpu_torch.utils.counters import count, sync_counters
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -83,11 +87,14 @@ def update_step(agent: Agent, buffer, agent_state, buf_state,
                 gen: torch.Generator, batch_size: int):
     """One update of the sequential loop: sample, update, priority
     feedback.  Returns the states and the update's metrics."""
-    batch = buffer.sample(buf_state, gen, batch_size,
-                          n_opts=count(agent_state, "n_opts"))
+    cuda = gen.device.type == "cuda"
+    with profiling.detail("update.sample", cuda):
+        batch = buffer.sample(buf_state, gen, batch_size,
+                              n_opts=count(agent_state, "n_opts"))
     agent_state, metrics, td_err = agent.update(agent_state, batch, gen)
     if td_err is not None:
-        buf_state = buffer.update_priority(buf_state, batch.ix_sample, td_err)
+        with profiling.detail("update.priority", cuda):
+            buf_state = buffer.update_priority(buf_state, batch.ix_sample, td_err)
     return agent_state, buf_state, metrics
 
 
@@ -142,12 +149,13 @@ def _same_states(agent_state, want_agent, buf_state, want_buf) -> None:
 def metrics_to_host(metrics: Dict[str, Any], *scalars: torch.Tensor):
     """One device→host copy for every tensor metric and the device
     ``scalars``: returns (the metrics as a Record, the scalars' values)."""
-    keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
-    tensors = [*scalars, *(metrics[k].float() for k in keys)]
-    vals = torch.stack(tensors).tolist() if tensors else []
-    rec = Record({k: float(v) for k, v in metrics.items()
-                  if not torch.is_tensor(v)})
-    rec.merge_inplace(Record(dict(zip(keys, vals[len(scalars):]))))
+    with profiling.span("metrics_to_host"):
+        keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+        tensors = [*scalars, *(metrics[k].float() for k in keys)]
+        vals = torch.stack(tensors).tolist() if tensors else []
+        rec = Record({k: float(v) for k, v in metrics.items()
+                      if not torch.is_tensor(v)})
+        rec.merge_inplace(Record(dict(zip(keys, vals[len(scalars):]))))
     return rec, vals[:len(scalars)]
 
 
@@ -477,19 +485,28 @@ class Trainer:
 
     def _chunk(self, agent_state, vec_state, buf_state, gen: torch.Generator,
                do_update: bool, do_env: bool = True):
-        if do_env:
-            agent_state, vec_state, buf_state, ep_ret, ep_cnt = self._env_scan(
-                agent_state, vec_state, buf_state, gen, explore=True
-            )
-        else:
-            ep_ret = ep_cnt = torch.zeros((), device=self.device)
-        metrics = {}
-        if do_update:
-            agent_state, buf_state, metrics = self._update_scan(
-                agent_state, buf_state, gen
-            )
-        if self.cuda_graphs:  # the host mirrors of the replayed counters
-            sync_counters(agent_state, buf_state)
+        """The chunk's env phase and update phase, each a span timed on
+        the device by events at its edges (:mod:`border_tpu_torch.utils.profiling`)."""
+        cuda = self.device.type == "cuda"
+        with profiling.chunk(self.config.steps_per_chunk if do_env else 0,
+                             self.vec.num_envs,
+                             self.updates_per_chunk if do_update else 0):
+            if do_env:
+                with profiling.span("chunk.env", cuda=cuda):
+                    agent_state, vec_state, buf_state, ep_ret, ep_cnt = (
+                        self._env_scan(agent_state, vec_state, buf_state, gen,
+                                       explore=True))
+            else:
+                ep_ret = ep_cnt = torch.zeros((), device=self.device)
+            metrics = {}
+            if do_update:
+                with profiling.span("chunk.update", cuda=cuda):
+                    agent_state, buf_state, metrics = self._update_scan(
+                        agent_state, buf_state, gen
+                    )
+            if self.cuda_graphs:  # the host mirrors of the replayed counters
+                with profiling.span("chunk.sync_counters"):
+                    sync_counters(agent_state, buf_state)
         return agent_state, vec_state, buf_state, metrics, ep_ret, ep_cnt
 
     def _dispatch(self, agent_state, vec_state, buffer_state,
@@ -527,13 +544,18 @@ class Trainer:
     # state construction
     # ------------------------------------------------------------------
     def init_states(self, seed_agent, seed_env):
-        agent_state = self.agent.init(
-            seed_agent, self.vec.observation_space, self.vec.action_space,
-            device=self.device,
-        )
-        vec_state = self.vec.reset(seed_env)
-        buffer_state = self.buffer.init(example_transition(
-            self.vec.observation_space, self.vec.action_space, self.device))
+        with profiling.span("trainer.init_states"):
+            with profiling.span("agent.init"):
+                agent_state = self.agent.init(
+                    seed_agent, self.vec.observation_space,
+                    self.vec.action_space, device=self.device,
+                )
+            with profiling.span("env.reset"):
+                vec_state = self.vec.reset(seed_env)
+            with profiling.span("buffer.init"):
+                buffer_state = self.buffer.init(example_transition(
+                    self.vec.observation_space, self.vec.action_space,
+                    self.device))
         return agent_state, vec_state, buffer_state
 
     # ------------------------------------------------------------------

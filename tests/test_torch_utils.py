@@ -37,7 +37,6 @@ from border_tpu.envs import make as jmake
 from border_tpu.models import AtariCNN as JAtariCNN
 from border_tpu.utils import NumpyMLPPolicy as JNumpyMLPPolicy
 from border_tpu.utils import export_policy as jexport_policy
-from border_tpu.utils.profiling import Stopwatch as JStopwatch
 from border_tpu_torch import convert
 from border_tpu_torch.agents import (AWAC, AWACConfig, BC, BCConfig, DQN,
                                      DQNConfig, IQL, IQLConfig, IQN, IQNConfig,
@@ -47,7 +46,6 @@ from border_tpu_torch.models import AtariCNN
 from border_tpu_torch.ops import _build
 from border_tpu_torch.utils import (NumpyMLPPolicy, enable_compilation_cache,
                                     export_policy, profile_trace)
-from border_tpu_torch.utils.profiling import Stopwatch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PONG_MODEL = os.path.join(ROOT, "artifacts", "pong_model", "best")
@@ -64,17 +62,6 @@ def test_profile_trace_writes_a_trace_and_is_a_noop_without_dir(tmp_path):
     (f,) = (tmp_path / "trace").iterdir()
     names = {e.get("name") for e in json.loads(f.read_text())["traceEvents"]}
     assert "aten::matmul" in names or "aten::mm" in names
-
-
-def test_stopwatch_matches_jax():
-    ours, theirs = Stopwatch(), JStopwatch()
-    for w in (ours, theirs):
-        assert (w.total, w.count, w.mean_ms) == (0.0, 0, 0.0)
-        for _ in range(3):
-            with w:
-                pass
-    assert ours.count == theirs.count == 3
-    assert ours.mean_ms == pytest.approx(1e3 * ours.total / 3)
 
 
 def test_build_cache_follows_the_cache_dir_variable(tmp_path, monkeypatch):
