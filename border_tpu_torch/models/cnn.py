@@ -3,15 +3,29 @@
 conv 32×8s4 → 64×4s2 → 64×3s1 → fc(3136→512) → out, with /255 input
 scaling and a ``skip_linear`` variant exposing the 512-d features.
 
-The public input is NHWC ``[B, 84, 84, 4]`` uint8, as in the JAX package.
-Inside, the input is permuted to NCHW, which is a view.  The view of a
-sampled stack is not dense and the weights are contiguous OIHW, so cuDNN
-transposes around each convolution (PERF.md, section 5, bottleneck 2).
-Parameters are float32; compute is in ``dtype`` (bf16 by default, as in
-JAX), with each weight cast at use; the Q output is float32.  The flatten
-before ``fc0`` is in NCHW order (``c·49 + h·7 + w``);
-:mod:`border_tpu_torch.convert` permutes the JAX ``Dense_0`` rows (NHWC
-order) to match.
+The public input is NHWC ``[B, 84, 84, C]`` uint8, as in the JAX package;
+parameters are float32 in the JAX-convertible order (OIHW convolutions,
+``fc0``'s columns in NCHW flatten order ``c·49 + h·7 + w``, to which
+:mod:`border_tpu_torch.convert` permutes the JAX ``Dense_0`` rows).  Compute
+is in ``dtype`` (bf16 by default, as in JAX); the Q output is float32.
+
+The layout handed to the convolutions is channels-last throughout, so cuDNN
+runs its NHWC tensor-core kernels and inserts no transposes:
+
+- conv0 (8×8, stride 4) runs as the 2×2, stride-1 convolution over the
+  space-to-depth input ``[B, 16·C, 21, 21]`` (:func:`space_to_depth`: input
+  channel ``c·16 + p·4 + q`` holds pixel ``(4i + p, 4j + q)`` of frame
+  ``c``), which sums the same products.  Its 16·C channels (64 for 4
+  frames, 16 for one) are a multiple of 8, as cuDNN's bf16 tensor-core
+  kernels want; C channels alone send it to a float32 engine.  (At batch
+  192–256 the H100's cuDNN still has only a TF32 engine for this shape,
+  fed by exact bf16 → float32 copies: PERF.md, section 6.)  The
+  rearrangement is the cast's one copy of the uint8 frames.
+- Every weight is cast at use, and that one copy also lays it out: conv0's
+  as ``[32, 16·C, 2, 2]``, conv1's and conv2's channels-last, and ``fc0``'s
+  columns permuted to the NHWC flatten order ``h·448 + w·64 + c`` of
+  conv2's channels-last output, which is then flattened as a view.
+  Gradients reach the float32 masters through these copies.
 
 Under the port's GSPMDTrainer a layer's weight may be column-sharded: it
 then holds the rank's block of output features and carries ``tp_group``,
@@ -19,7 +33,8 @@ the name of its model group.  :func:`linear` and :func:`conv2d` compute
 that block, gather the blocks over the group and add the whole
 (replicated) bias; the gradient of their input is summed over the group,
 since every block reads it.  On an unsharded weight they are ``F.linear``
-and ``F.conv2d``.
+and ``F.conv2d``.  The at-use layouts keep the output features first, so
+they apply to a block as to the whole weight.
 """
 
 from __future__ import annotations
@@ -69,6 +84,47 @@ def conv2d(m: nn.Module, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b[:, None, None]
 
 
+def space_to_depth(x: torch.Tensor, block: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """NHWC ``x`` ``[B, H, W, C]`` (any strides) → ``[B, block²·C, H/block,
+    W/block]`` in ``dtype``, channels-last, in one copy: channel
+    ``(c·block + p)·block + q`` at ``(i, j)`` is ``x[:, block·i + p,
+    block·j + q, c]``.  In the copy's order a frame's ``block`` neighbouring
+    pixels of a row are read together.
+
+    One call a torso forward, counted as :func:`border_tpu_torch.ops.
+    gather_frames` counts its launches: ``launches`` the forwards run
+    (eagerly, or by the replays of a graph that recorded them:
+    :mod:`border_tpu_torch.train.graphs`), ``captured`` those recorded into
+    a capturing CUDA graph."""
+    b, h, w, c = x.shape
+    x = x.unflatten(1, (h // block, block)).unflatten(3, (w // block, block))
+    x = x.permute(0, 1, 3, 5, 2, 4)  # [B, i, j, C, p, q]
+    x = x.to(dtype, memory_format=torch.contiguous_format)
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        space_to_depth.captured += 1
+    else:
+        space_to_depth.launches += 1
+    return x.reshape(b, h // block, w // block, -1).permute(0, 3, 1, 2)
+
+
+space_to_depth.launches = 0
+space_to_depth.captured = 0
+
+
+def space_to_depth_weight(w: torch.Tensor, block: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """OIHW ``w`` ``[O, C, K, K]`` of a stride-``block`` convolution →
+    ``[O, block²·C, K/block, K/block]`` in ``dtype``, channels-last, in one
+    copy: the weight of the stride-1 convolution over
+    :func:`space_to_depth`'s input that sums the same products."""
+    o, _, kh, kw = w.shape
+    w = w.unflatten(2, (kh // block, block)).unflatten(4, (kw // block, block))
+    w = w.permute(0, 2, 4, 1, 3, 5)  # [O, a, b, C, p, q]
+    w = w.to(dtype, memory_format=torch.contiguous_format)
+    return w.reshape(o, kh // block, kw // block, -1).permute(0, 3, 1, 2)
+
+
 class AtariCNN(nn.Module):
     def __init__(
         self,
@@ -102,23 +158,31 @@ class AtariCNN(nn.Module):
                 _lecun_normal_(m.weight, fan_in, gen)
                 m.bias.zero_()
 
-    def _w(self, m: nn.Module, scale: float = 1.0):
-        w = m.weight / scale if scale != 1.0 else m.weight
-        return w.to(self.dtype), m.bias.to(self.dtype)
+    def _w(self, m: nn.Module, memory_format=torch.preserve_format):
+        return (m.weight.to(self.dtype, memory_format=memory_format),
+                m.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``: ``[B, 84, 84, 4]`` (uint8 frames, 0..255)."""
-        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NCHW view
+        """``x``: ``[B, 84, 84, C]`` (uint8 frames, 0..255)."""
+        block = self.conv0.stride[0]
+        x = space_to_depth(x, block, self.dtype)
+        w0 = self.conv0.weight
         if self.scale_in_kernel:
-            w, b = self._w(self.conv0, 255.0)  # raw 0..255; /255 in conv0
+            w0 = w0 / 255.0  # raw 0..255; /255 in conv0
         else:
             x = x / 255.0
-            w, b = self._w(self.conv0)
-        x = F.relu(conv2d(self.conv0, x, w, b, stride=4))
-        x = F.relu(conv2d(self.conv1, x, *self._w(self.conv1), stride=2))
-        x = F.relu(conv2d(self.conv2, x, *self._w(self.conv2), stride=1))
-        x = x.flatten(1)  # NCHW order: c·49 + h·7 + w
-        x = F.relu(linear(self.fc0, x, *self._w(self.fc0)))
+        w0 = space_to_depth_weight(w0, block, self.dtype)
+        x = F.relu(conv2d(self.conv0, x, w0, self.conv0.bias.to(self.dtype),
+                          stride=1))
+        cl = torch.channels_last
+        x = F.relu(conv2d(self.conv1, x, *self._w(self.conv1, cl), stride=2))
+        x = F.relu(conv2d(self.conv2, x, *self._w(self.conv2, cl), stride=1))
+        shape = x.shape[1:]
+        x = x.permute(0, 2, 3, 1).flatten(1)  # NHWC order: h·448 + w·64 + c
+        # fc0's columns from NCHW order to x's, in the cast's copy
+        w = self.fc0.weight.unflatten(1, shape).permute(0, 2, 3, 1)
+        w = w.to(self.dtype, memory_format=torch.contiguous_format).flatten(1)
+        x = F.relu(linear(self.fc0, x, w, self.fc0.bias.to(self.dtype)))
         if self.skip_linear:
             return x.float()
         return linear(self.fc1, x, *self._w(self.fc1)).float()

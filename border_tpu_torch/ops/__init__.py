@@ -6,10 +6,12 @@ wrapper runs it for CPU tensors (the tests), and ``chip_smoke.py`` holds the
 kernel against it on the card.
 """
 
+from border_tpu_torch.models.cnn import space_to_depth
 from border_tpu_torch.ops.frame_gather import gather_frames, gather_frames_ref
 
 # the wrappers that count their kernel's launches (``launches``) and the
-# launches they record into a capturing CUDA graph (``captured``)
-COUNTED = (gather_frames,)
+# launches they record into a capturing CUDA graph (``captured``); beside
+# the gather's, the torso's forwards in the space-to-depth layout
+COUNTED = (gather_frames, space_to_depth)
 
 __all__ = ["COUNTED", "gather_frames", "gather_frames_ref"]

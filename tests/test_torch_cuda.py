@@ -1,5 +1,6 @@
 """Tests that need the card: the port's CUDA kernels against their plain
-PyTorch versions, bitwise; the sum tree, the games, the classic-control
+PyTorch versions, bitwise; the bf16 Atari torso's kernels (no float32
+fallback, no layout transposes); the sum tree, the games, the classic-control
 envs and the Reacher, and the DQN, IQN, SAC, AWAC and IQL updates on the
 card against the CPU path; a small prioritized train-checkpoint-resume on
 the card; the graphed chunk (CUDA-graph replays) against the eager one,
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from border_tpu_torch.models.cnn import space_to_depth
 from border_tpu_torch.ops import frame_gather
 from border_tpu_torch.ops import gather_frames, gather_frames_ref
 
@@ -122,6 +124,50 @@ def test_gather_frames_raises_on_non_contiguous_cuda_input():
     idx = torch.zeros((2, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         gather_frames(frames.transpose(1, 2), idx)
+
+
+# substrings of the kernels cuDNN runs around a convolution whose layout or
+# channel count its bf16 tensor-core kernels do not take: the float32
+# fallback (``…f32f32_f32f32_f32…``) and the transposes and conversions
+_TORSO_DETOURS = ("f32f32_f32f32", "nchwToNhwc", "nhwcToNchw", "convertTensor")
+
+
+@pytest.mark.cuda
+def test_bf16_torso_runs_no_fallback_or_transposes_on_card():
+    """A bf16 torso forward and backward at batch 512 from a ``[512, 5, 84,
+    84]`` union gather (the replay8 cells' update) runs no float32 fallback
+    convolution and no layout transpose or conversion: conv0 over the
+    space-to-depth input, every convolution channels-last."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from border_tpu_torch.models import AtariCNN
+
+    dev = _cuda()
+    net = AtariCNN(6)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    net.to(dev)
+    g = torch.randint(0, 256, (512, 5, 84, 84), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    obs = g[:, :4].permute(0, 2, 3, 1)  # the sampled stack, NHWC, not dense
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        net(obs).square().mean().backward()
+
+    step()  # cuDNN's plans and the allocator, outside the trace
+    torch.cuda.synchronize()
+    before = space_to_depth.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    assert space_to_depth.launches == before + 1
+    cuda = torch.autograd.DeviceType.CUDA
+    names = {e.name for e in prof.events() if e.device_type == cuda}
+    assert names, "the profiler saw no kernel"
+    detours = sorted(n for n in names if any(d in n for d in _TORSO_DETOURS))
+    assert not detours, detours
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               and torch.isfinite(p.grad).all() for p in net.parameters())
 
 
 @pytest.mark.cuda
@@ -696,7 +742,9 @@ def _graphed_vs_eager(make_trainer, update_chunks=3, warm_chunks=1):
     graphed chunks and as many eager ones (``cuda_graphs=False``): agent
     state (parameters, targets, optimizer moments and steps, counters),
     replay state, env state, both generators and every chunk's metrics
-    equal bitwise.  Returns the graphed trainer and its final agent state."""
+    equal bitwise, and so do the gather's launches and the torso's forwards
+    counted.  Returns the graphed trainer, its final agent state, its gather
+    launches and its torso forwards."""
     out = {}
     for graphs in (True, False):
         tr = make_trainer(graphs)
@@ -704,6 +752,7 @@ def _graphed_vs_eager(make_trainer, update_chunks=3, warm_chunks=1):
         ag, vec, buf = tr.init_states(0, 1)
         gen = tr._loop_generator(0)
         launches = frame_gather.gather_frames.launches
+        torso = space_to_depth.launches
         for _ in range(warm_chunks):
             ag, vec, buf, _, _, _ = tr._chunk(ag, vec, buf, gen, False)
         chunks = []
@@ -712,7 +761,8 @@ def _graphed_vs_eager(make_trainer, update_chunks=3, warm_chunks=1):
             chunks.append({**metrics, "ret": ret, "cnt": cnt})
         torch.cuda.synchronize()
         out[graphs] = (ag, vec, buf, gen, chunks,
-                       frame_gather.gather_frames.launches - launches, tr)
+                       frame_gather.gather_frames.launches - launches, tr,
+                       space_to_depth.launches - torso)
     g, e = out[True], out[False]
     _assert_bitwise(g[:4], e[:4])
     for cg, ce in zip(g[4], e[4]):
@@ -720,9 +770,10 @@ def _graphed_vs_eager(make_trainer, update_chunks=3, warm_chunks=1):
         for k in ce:
             assert torch.equal(cg[k], ce[k]), k
     assert g[5] == e[5]  # the gather's launches, counted per replay
+    assert g[7] == e[7]  # the torso's forwards, counted per replay
     assert g[6]._graphs and all(loop.graph is not None
                                 for loop in g[6]._graphs.values())
-    return g[6], g[0], g[5]
+    return g[6], g[0], g[5], g[7]
 
 
 def _pong_trainer(buffer_kw=None, agent=None, **cfg):
@@ -758,13 +809,17 @@ def test_graphed_uniform_pong_chunk_equals_eager_chunk_bitwise(order):
     _cuda()
     cfg = {"sequential": {}, "prefetch": dict(prefetch_sample=True),
            "sample_batches": dict(updates_per_sample_batch=4)}[order]
-    tr, ag, launches = _graphed_vs_eager(_pong_trainer(**cfg))
+    tr, ag, launches, torso = _graphed_vs_eager(_pong_trainer(**cfg))
     m = tr.updates_per_chunk
     # one gather a sample: M+1 samples a chunk when prefetching, M/4 of
     # four batches each in the sample-batch order
     samples = {"sequential": m, "prefetch": m + 1, "sample_batches": m // 4}
     assert ag.n_opts == 3 * m and launches == 3 * samples[order]
     assert int(ag.counts[0]) == ag.n_opts and ag.n_samples == 4 * 8 * 64
+    # torso forwards in the space-to-depth layout: one an env step's act,
+    # three a double-DQN update (target, online on next_obs and on obs),
+    # the replayed ones added by every replay
+    assert torso == 4 * 8 + 3 * ag.n_opts
 
 
 @pytest.mark.cuda
@@ -774,7 +829,7 @@ def test_graphed_per_pong_chunk_equals_eager_chunk_bitwise():
     from border_tpu_torch.replay import PerConfig
 
     _cuda()
-    tr, ag, launches = _graphed_vs_eager(
+    tr, ag, launches, _ = _graphed_vs_eager(
         _pong_trainer(dict(per=PerConfig(n_opts_final=64))))
     assert launches == ag.n_opts == 3 * tr.updates_per_chunk
 
@@ -829,7 +884,7 @@ def test_graphed_flat_buffer_cartpole_chunk_equals_eager_chunk_bitwise(n_step):
                                      batch_size=64, opt_interval=32,
                                      warmup_period=0), cuda_graphs=graphs)
 
-    tr, ag, _ = _graphed_vs_eager(build, update_chunks=3)
+    tr, ag, _, _ = _graphed_vs_eager(build, update_chunks=3)
     assert ag.n_samples == 4 * 8 * 128
 
 
