@@ -4,10 +4,10 @@
 
 For each seed: the program's set-up at the cell's own size (the same
 object and chunks as a run's, without the window), then the comparison
-with the reference, and on the same inputs the control (the reference
-one precision step below the configuration's) and the planted faults
-(the loss's mean over half the batch; steps that leave the parameters
-and the sum tree unchanged), each against the reference.  One
+with the reference by the check of the configuration's driver
+(``reference/checks/<driver>.py``), and on the same inputs the control
+(the reference one precision step below the configuration's) and the
+planted faults that the check reads, each against the reference.  One
 JSON line a seed, then one line of the largest program reading and the
 smallest control and fault readings of each number.  The benchmark's own
 runs never run this.
@@ -33,8 +33,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from portbench.reference import check
+    from portbench.reference import checks
 
+    check = checks.find(files["cfg"])
     if not torch.cuda.is_available():
         print("portbench.calibrate: needs a CUDA device", file=sys.stderr)
         return 3
@@ -55,10 +56,11 @@ def main(argv=None) -> int:
         rows.append(nums)
         print(json.dumps(nums), flush=True)
     names = [k for k in rows[0] if "." not in k and k not in ("seed", "setup_s", "check_s")]
+    sides = dict.fromkeys(k.split(".")[0] for k in rows[0] if "." in k)
     summary = {"workload": args.workload, "seeds": len(rows)}
     for k in names:
         summary[k] = {"program_max": max(r[k] for r in rows)}
-        for side in ("control", "half", "still"):
+        for side in sides:
             key = f"{side}.{k}"
             if key in rows[0]:
                 summary[k][f"{side}_min"] = min(r[key] for r in rows)

@@ -1,7 +1,9 @@
-"""The comparison that decides ``correct``.
+"""The comparison that decides ``correct`` for the fused trainer's driver.
 
 What the program produced in set-up, through the window's own call (the
-trainer's chunk), is judged here against the plain reference:
+trainer's chunk), is judged here against the plain reference: the
+configuration's game (:mod:`portbench.reference.games`, by ``env``) and
+agent kind (:mod:`portbench.reference.kinds`, by ``agent.kind``).
 
 1. **act and env step**: the reference replays the cell's envs from the seed's
    reset with the actions the program took (its answers, read only to
@@ -19,7 +21,7 @@ trainer's chunk), is judged here against the plain reference:
    ``sample_mismatch``.
 3. **agent update**: the reference starts from the seed's weights and
    follows the first six updates in float32 on its own batches (the
-   program's draws of env and step, and for IQN the fractions τ drawn
+   program's draws of env and step, and whatever the kind's loss draws
    from the program's generator state at the update, worked out again).
    The program ran the first three eagerly (its graph's warm-up) and the
    next three as replays of its captured update, as the window runs
@@ -55,7 +57,7 @@ import numpy as np
 import torch
 
 from portbench import seeds, weights
-from portbench.reference import games, nets, precision, update
+from portbench.reference import games, kinds, precision, update
 
 BELOW = {"bfloat16": "fp8", "float32": "tf32"}
 
@@ -63,17 +65,13 @@ BELOW = {"bfloat16": "fp8", "float32": "tf32"}
 def greedy_policy(cfg: dict, seed: int, device, mode: str = "fp32"):
     """The acting net's greedy action of ``[N, 4, 84, 84]`` stacks, at the
     seed's weights (set-up acts before any update)."""
-    kind = cfg["agent"]["kind"]
-    w0 = weights.make(nets.SHAPES[kind](cfg), seeds.weights(seed), device)
+    kind = kinds.find(cfg)
+    w0 = weights.make(kind.shapes(cfg), seeds.weights(seed), device)
     rnd, rnd_head = rounders(cfg, mode)
 
     @torch.no_grad()
     def act(x):
-        if kind == "dqn":
-            return nets.dqn_q(w0, x, cfg, rnd).argmax(dim=1)
-        k = int(cfg["agent"]["sample_percents_act"][len("const"):])
-        taus = update.midpoints(k, x.device).expand(x.shape[0], k)
-        return nets.iqn_z(w0, x, taus, cfg, rnd, rnd_head).mean(dim=1).argmax(dim=1)
+        return kind.greedy(w0, x, cfg, rnd, rnd_head)
 
     return act
 
@@ -213,8 +211,8 @@ def follow(cfg: dict, wl: dict, seed: int, ref_ring: dict, prog_updates: List[di
     every product one precision step under the configuration's.  The
     planted faults: ``half`` (the loss's mean over half the batch),
     ``still`` (steps that leave the parameters and the tree unchanged)."""
-    kind = cfg["agent"]["kind"]
-    w0 = weights.make(nets.SHAPES[kind](cfg), seeds.weights(seed), device)
+    kind = kinds.find(cfg)
+    w0 = weights.make(kind.shapes(cfg), seeds.weights(seed), device)
     params = {k: v.clone().requires_grad_(True) for k, v in w0.items()}
     target = {k: v.clone() for k, v in w0.items()}
     rnd, rnd_head = rounders(cfg, mode)
@@ -247,20 +245,8 @@ def follow(cfg: dict, wl: dict, seed: int, ref_ring: dict, prog_updates: List[di
                 # which no precision pins down (PERF.md)
                 b["weight"] = (torch.ones_like(b["reward"]) if k == 0
                                else u["weight"].to(device))
-            if kind == "iqn":
-                a = cfg["agent"]
-                g = torch.Generator(device=device)
-                g.set_state(u["gen_state"])
-                if u.get("gen_offset") is not None:
-                    g.set_offset(u["gen_offset"])
-                B = b["reward"].shape[0]
-                kp = int(a["sample_percents_pred"][len("uniform"):])
-                kt = int(a["sample_percents_tgt"][len("uniform"):])
-                b["taus_pred"] = torch.rand((B, kp), generator=g, device=device)
-                b["taus_tgt"] = torch.rand((B, kt), generator=g, device=device)
-                loss, td = update.iqn_loss(params, target, b, cfg, rnd, rnd_head, half)
-            else:
-                loss, td = update.dqn_loss(params, target, b, cfg, rnd, half)
+            b.update(kind.loss_draws(u, b, cfg, device))
+            loss, td = kind.loss(params, target, b, cfg, rnd, rnd_head, half)
             grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
             if not still:
                 opt.step(params, grads)
@@ -340,11 +326,23 @@ def program_readings(obs: dict, device) -> dict:
                        if u["tree_total"] is not None]}
 
 
+def small(cfg: dict, wl: dict) -> None:
+    """``cfg`` cut in place to a size a CPU test holds: 16 envs, a 128-step
+    ring, 32-step chunks, batch 128 (64 at one sample a transition, so
+    that set-up's second chunk makes the judged updates), a target copy
+    every 8 updates, every width as published; ε reaches its floor within
+    set-up, so most of its actions are greedy and judged."""
+    cfg["replay"].update(num_envs=16, capacity_per_env=128, steps_per_chunk=32)
+    cfg["agent"].update(batch_size=min(128, 64 * wl["replay_ratio"]),
+                        eps_final_step=64, target_interval=8)
+
+
 def numbers(obs: dict, cfg: dict, wl: dict, seed: int, device,
             controls: bool = False) -> Dict[str, Optional[float]]:
     """Every compared number of a run (``obs``: the driver's record of
-    set-up).  ``controls``: also the control's and the half-batch fault's
-    readings of the update's numbers, under ``control.`` and ``half.``."""
+    set-up).  ``controls``: also the control's and the planted faults'
+    readings of the update's numbers, under ``control.``, ``half.`` and
+    ``still.``."""
     policies = {"ref": greedy_policy(cfg, seed, device)}
     if controls:
         policies["control"] = greedy_policy(cfg, seed, device, "below")

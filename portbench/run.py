@@ -4,10 +4,14 @@
 
 Everything a cell is made of is found by name: its entry in
 ``BENCHMARK.json`` names a configuration (``configs/<config>.json``,
-whose ``driver`` is ``drivers/<driver>.py`` and whose FLOP count is
-``flops/<config>.py``) and a traffic mix (``workloads/<traffic>.json``);
-``limits/<cell>.json`` holds the limits of the compared numbers, and each
-per-layer metric is read by ``metrics/<name>.py``.
+whose FLOP count is ``flops/<config>.py``) and a traffic mix
+(``workloads/<traffic>.json``); ``limits/<cell>.json`` holds the limits
+of the compared numbers, and each per-layer metric is read by
+``metrics/<name>.py``.  The configuration's ``driver`` is
+``drivers/<driver>.py``, judged by ``reference/checks/<driver>.py``; its
+``agent.kind`` is built by ``agents/<kind>.py``, with its reference
+(parameter shapes, greedy action, loss) in ``reference/kinds/<kind>.py``;
+a pixel configuration's ``env`` is ``reference/games/<env>.py``.
 
 A run: set-up (the program imported, its trainer built from the seed with
 the benchmark's weights, the two chunks that capture its graphs), then a
@@ -112,12 +116,11 @@ def power_limit() -> str:
 def build(files: dict, seed: int, device):
     """The program's trainer for the cell, set up from ``seed``."""
     from portbench import seeds, weights
-    from portbench.reference import nets
+    from portbench.reference import kinds
 
     cfg = files["cfg"]
     driver = importlib.import_module(f"portbench.drivers.{cfg['driver']}")
-    w0 = weights.make(nets.SHAPES[cfg["agent"]["kind"]](cfg), seeds.weights(seed),
-                      device)
+    w0 = weights.make(kinds.find(cfg).shapes(cfg), seeds.weights(seed), device)
     drv = driver.Driver(cfg, files["wl"], seed, device)
     drv.setup(w0)
     return drv
@@ -220,9 +223,10 @@ def main(argv=None) -> int:
     del drv
     gc.collect()
     torch.cuda.empty_cache()
-    from portbench.reference import check
+    from portbench.reference.checks import find as find_check
 
-    readings = check.numbers(obs, files["cfg"], files["wl"], args.seed, device)
+    readings = find_check(files["cfg"]).numbers(obs, files["cfg"], files["wl"],
+                                                args.seed, device)
     readings["target_mismatch"] = target_mismatch
     checks, failed = verdict(readings, files["limits"])
 

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from portbench import run
-from portbench.reference import check
+from portbench.reference import checks
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
@@ -26,15 +26,10 @@ CPU = torch.device("cpu")
 
 
 def small(cell: str) -> dict:
-    """The cell's files at a size a CPU test holds: 16 envs, a 128-step
-    ring, 32-step chunks, batch 128 (64 at one sample a transition, so
-    that set-up's second chunk makes the judged updates), a target copy
-    every 8 updates, every width as published; ε reaches its floor within
-    set-up, so most of its actions are greedy and judged."""
+    """The cell's files at the size a CPU test holds, as the check of its
+    driver cuts it (every width as published)."""
     f = run.cell_files(cell)
-    f["cfg"]["replay"].update(num_envs=16, capacity_per_env=128, steps_per_chunk=32)
-    f["cfg"]["agent"].update(batch_size=min(128, 64 * f["wl"]["replay_ratio"]),
-                             eps_final_step=64, target_interval=8)
+    checks.find(f["cfg"]).small(f["cfg"], f["wl"])
     return f
 
 
@@ -44,7 +39,8 @@ def readings(f: dict, controls: bool = False) -> dict:
     obs = drv.observations()
     target_mismatch = drv.target_check()
     drv.free()
-    out = check.numbers(obs, f["cfg"], f["wl"], SEED, CPU, controls=controls)
+    out = checks.find(f["cfg"]).numbers(obs, f["cfg"], f["wl"], SEED, CPU,
+                                        controls=controls)
     out["target_mismatch"] = target_mismatch
     return out
 
@@ -70,6 +66,51 @@ def test_the_control_is_not_correct(cell):
     control.update(env_mismatch=0, sample_mismatch=0, target_mismatch=0)
     _, failed = run.verdict(control, run.cell_files(cell)["limits"])
     assert "grad_flip" in failed, control
+
+
+def test_a_kind_joins_by_new_files_alone(tmp_path):
+    """A copy of the benchmark takes a new agent kind (DQN's builder and
+    reference under another name), a configuration that names it and a
+    cell for it as new files and new entries of ``BENCHMARK.json``, no file
+    that was there edited; the copied harness runs the cell and reads what
+    the cell it copies reads."""
+    import os
+    import shutil
+
+    base_cell, kind, config = "dqn-pong.replay8", "twin", "twin-pong"
+    here, copy = ROOT / "portbench", tmp_path / "portbench"
+    shutil.copytree(here, copy, ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in copy.rglob("*") if p.is_file()}
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    base = {w["name"]: w for w in bench["workloads"]}[base_cell]
+    entry = {c["name"]: c for c in bench["configs"]}[base["config"]]
+    cfg = json.loads((ROOT / entry["file"]).read_text())
+    base_kind = cfg["agent"]["kind"]
+    cfg["name"], cfg["agent"]["kind"] = config, kind
+    new = {
+        f"agents/{kind}.py": (here / "agents" / f"{base_kind}.py").read_text(),
+        f"reference/kinds/{kind}.py":
+            (here / "reference" / "kinds" / f"{base_kind}.py").read_text(),
+        f"configs/{config}.json": json.dumps(cfg),
+        f"flops/{config}.py": (here / "flops" / f"{base['config']}.py").read_text(),
+        f"limits/{config}.replay8.json": (here / "limits" / f"{base_cell}.json").read_text(),
+    }
+    for rel, text in new.items():
+        assert not (copy / rel).exists(), rel
+        (copy / rel).write_text(text)
+    bench["configs"].append(dict(entry, name=config, file=f"portbench/configs/{config}.json"))
+    bench["workloads"].append(dict(base, name=f"{config}.replay8", config=config))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    code = ("import json, portbench; from portbench.tests import test_portbench_check as t; "
+            f"assert portbench.__file__.startswith({str(copy)!r}), portbench.__file__; "
+            f"print(json.dumps(t.sound({config + '.replay8'!r})))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == sound(base_cell)
+    assert all(p.read_bytes() == b for p, b in before.items())
 
 
 def _fails(cell: str, patch) -> list:

@@ -1,5 +1,6 @@
 """The benchmark's data: BENCHMARK.json, every configuration, traffic and
-limits file, each metric found by its name, the FLOP and byte counts."""
+limits file, each part of a cell found by its name (and named nowhere
+else), the FLOP and byte counts."""
 
 import importlib.util
 import json
@@ -8,10 +9,14 @@ from pathlib import Path
 
 import pytest
 
+from portbench.reference import checks, games, kinds
+
 ROOT = Path(__file__).resolve().parents[2]
 HERE = ROOT / "portbench"
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+CONFIGS = [json.loads((ROOT / c["file"]).read_text()) for c in BENCH["configs"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+SOURCES = sorted(p for p in HERE.rglob("*.py") if "tests" not in p.relative_to(HERE).parts)
 
 
 def load(path: Path):
@@ -49,7 +54,49 @@ def test_every_cell_finds_its_files(cell):
     assert (HERE / "drivers" / f"{c['driver']}.py").exists()
     assert (HERE / "agents" / f"{c['agent']['kind']}.py").exists()
     load(HERE / "flops" / f"{w['config']}.py")
+    kind = kinds.find(c)
+    assert all(callable(getattr(kind, f)) for f in ("shapes", "greedy", "loss_draws", "loss"))
+    check = checks.find(c)
+    assert callable(check.numbers) and callable(check.small)
+    if getattr(check, "games", None) is games:  # a check that plays reference/games
+        assert games.find(c["env"])().n_actions == c["n_actions"]
     assert w["chips"] == 1
+
+
+def _spoken(name: str) -> str:
+    """How a source names a kind, a driver or an env id (a game by its
+    name, without the version)."""
+    return name.split("-v")[0].lower()
+
+
+# every agent kind, game and driver of a configuration
+FOUND_BY_NAME = sorted({x for c in CONFIGS for x in (c["agent"]["kind"], c["env"], c["driver"])})
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(HERE)))
+def test_only_the_files_found_by_a_name_say_it(path):
+    """A source names an agent kind, a game or a driver only where it is
+    found by that name (``agents/<kind>.py``, ``reference/kinds/<kind>.py``,
+    ``drivers/<driver>.py``, ``reference/checks/<driver>.py``,
+    ``reference/games/<env>.py``), or by the name of a configuration that
+    has it (``flops/<config>.py``): the harness, the weights and the shared
+    reference name none, so a configuration joins by new files alone."""
+    allowed = {path.stem}
+    for c in CONFIGS:
+        if c["name"] == path.stem:
+            allowed |= {c["agent"]["kind"], c["env"], c["driver"]}
+    text = path.read_text().lower()
+    said = [n for n in FOUND_BY_NAME if n not in allowed and _spoken(n) in text]
+    assert not said, said
+
+
+def test_the_names_found_by_name():
+    assert {"dqn", "iqn", "Pong-v0", "Seaquest-v0", "fused_trainer"} <= set(FOUND_BY_NAME)
+    shared = [HERE / p for p in ("run.py", "calibrate.py", "weights.py", "reference/nets.py",
+                                 "reference/update.py", "reference/precision.py",
+                                 "reference/games/__init__.py", "reference/kinds/__init__.py",
+                                 "reference/checks/__init__.py")]
+    assert set(shared) <= set(SOURCES)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
@@ -61,10 +108,11 @@ def test_config_files_name_their_source():
     for entry in BENCH["configs"]:
         c = json.loads((ROOT / entry["file"]).read_text())
         assert c["source"] == entry["source"] and c["reduced"] == entry["reduced"]
-        assert c["torso"]["conv"] == [[32, 8, 4], [64, 4, 2], [64, 3, 1]]
-        assert c["torso"]["fc"] == 512
-        r = c["replay"]
-        assert r["num_envs"] * r["capacity_per_env"] == 2 ** 20
+        if "torso" in c:  # the Nature torso over a 2^20-frame ring
+            assert c["torso"]["conv"] == [[32, 8, 4], [64, 4, 2], [64, 3, 1]]
+            assert c["torso"]["fc"] == 512
+            r = c["replay"]
+            assert r["num_envs"] * r["capacity_per_env"] == 2 ** 20
         widths = ("conv", "fc", "feature_dim", "n_cos", "hidden")
         assert not set(c["reduced"]) & set(widths)
         assert set(c["reduced"]) <= set(c)

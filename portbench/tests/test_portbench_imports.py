@@ -36,15 +36,18 @@ def test_no_jax_import(path):
     assert not set(top_level_imports(path)) & JAX
 
 
-@pytest.mark.parametrize("path", sorted((HERE / "reference").glob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((HERE / "reference").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(HERE / "reference")))
 def test_reference_imports_nothing_of_the_program(path):
     assert "border_tpu_torch" not in set(top_level_imports(path))
 
 
 def test_loaded_modules_of_the_reference_and_harness():
-    code = ("import sys; import portbench.reference.check, portbench.run, "
-            "portbench.calibrate; "
+    code = ("import sys, json; import portbench.run, portbench.calibrate; "
+            "from portbench.reference import checks, games, kinds; "
+            "cfgs = [json.load(open(c['file'])) for c in json.load(open('BENCHMARK.json'))"
+            "['configs']]; "
+            "[(checks.find(c), kinds.find(c), games.find(c['env'])) for c in cfgs]; "
             "tops = {m.split('.')[0] for m in sys.modules}; "
             "print(sorted(tops & {'jax', 'jaxlib', 'flax', 'optax', 'border_tpu', "
             "'border_tpu_torch'}))")
