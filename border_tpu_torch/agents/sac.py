@@ -12,7 +12,11 @@
 The state holds the modules, ``log_alpha`` (a 0-dim tensor) and three
 ``torch.optim`` optimizers; ``update`` steps them in place.  Its two normal
 draws (the next action's, the actor's) come from the generator or are
-injected as ``noise``.
+injected as ``noise``.  At tracing level ``detail`` the update is split
+into the spans ``update.critic`` (the target, the critics' forward,
+backward and step), ``update.actor``, ``update.alpha``, ``update.target``
+(the Polyak update) and ``update.priority`` (the TD error's forward)
+(:func:`border_tpu_torch.utils.profiling.detail`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from border_tpu_torch.core import spaces
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.models.mlp import EnsembleMLP, GaussianHeadMLP
 from border_tpu_torch.replay.buffer import TransitionBatch
+from border_tpu_torch.utils import profiling
 from border_tpu_torch.utils.counters import advance, new_counts
 from border_tpu_torch.utils.device import resolve_device
 
@@ -168,41 +173,46 @@ class SAC(Agent):
         action)``, each ``[B, act_dim]``, in place of ``gen``'s."""
         c = self.config
         obs, act, next_obs, reward, _term, _trunc, _ix, weight = batch.unpack()
-        reward = reward.float() * c.reward_scale
+        cuda = reward.is_cuda
         z_next, z_actor = noise if noise is not None else (None, None)
         actor, critic = state.actor_params, state.critic_params
-        alpha = state.log_alpha.detach().exp()
 
-        # critic target
-        with torch.no_grad():
-            next_act, next_logp = self._sample_action(actor, next_obs, gen, z_next)
-            q_next = state.critic_target_params(critic_input(next_obs, next_act))[..., 0]
-            target = reward + bootstrap_discount(c.gamma, batch) * (
-                q_next.min(0).values - alpha * next_logp)
+        with profiling.detail("update.critic", cuda):
+            reward = reward.float() * c.reward_scale
+            alpha = state.log_alpha.detach().exp()
+            # critic target
+            with torch.no_grad():
+                next_act, next_logp = self._sample_action(actor, next_obs, gen, z_next)
+                q_next = state.critic_target_params(critic_input(next_obs, next_act))[..., 0]
+                target = reward + bootstrap_discount(c.gamma, batch) * (
+                    q_next.min(0).values - alpha * next_logp)
 
-        q = critic(critic_input(obs, act))[..., 0]  # [n, B]
-        c_loss = weighted_mean(weight, CRITIC_LOSSES[c.critic_loss](q, target[None, :]))
-        minimize(state.critic_opt, c_loss, group=self.axis_group)
+            q = critic(critic_input(obs, act))[..., 0]  # [n, B]
+            c_loss = weighted_mean(weight, CRITIC_LOSSES[c.critic_loss](q, target[None, :]))
+            minimize(state.critic_opt, c_loss, group=self.axis_group)
 
-        # actor loss α·logπ − minQ, through the critics just updated
-        a, logp = self._sample_action(actor, obs, gen, z_actor)
-        min_q = critic(critic_input(obs, a))[..., 0].min(0).values
-        a_loss = (alpha * logp - min_q).mean()
-        minimize(state.actor_opt, a_loss, inputs=list(actor.parameters()),
-                 group=self.axis_group)
-        logp = logp.detach()
+        with profiling.detail("update.actor", cuda):
+            # actor loss α·logπ − minQ, through the critics just updated
+            a, logp = self._sample_action(actor, obs, gen, z_actor)
+            min_q = critic(critic_input(obs, a))[..., 0].min(0).values
+            a_loss = (alpha * logp - min_q).mean()
+            minimize(state.actor_opt, a_loss, inputs=list(actor.parameters()),
+                     group=self.axis_group)
+            logp = logp.detach()
 
-        if c.ent_coef_mode == "auto":
-            al_loss = -(state.log_alpha * (logp + self.target_entropy)).mean()
-            minimize(state.alpha_opt, al_loss, group=self.axis_group)
-            al_loss = al_loss.detach()
-        else:
-            al_loss = torch.zeros((), device=reward.device)
+        with profiling.detail("update.alpha", cuda):
+            if c.ent_coef_mode == "auto":
+                al_loss = -(state.log_alpha * (logp + self.target_entropy)).mean()
+                minimize(state.alpha_opt, al_loss, group=self.axis_group)
+                al_loss = al_loss.detach()
+            else:
+                al_loss = torch.zeros((), device=reward.device)
 
-        polyak_update(c.tau, critic, state.critic_target_params)
-        advance(state, "n_opts", 1)
+        with profiling.detail("update.target", cuda):
+            polyak_update(c.tau, critic, state.critic_target_params)
+            advance(state, "n_opts", 1)
         # TD error for PER: the ensemble's mean Q after the update − target
-        with torch.no_grad():
+        with profiling.detail("update.priority", cuda), torch.no_grad():
             td_err = critic(critic_input(obs, act))[..., 0].mean(0) - target
         metrics = {
             "loss_critic": c_loss.detach(),

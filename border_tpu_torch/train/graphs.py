@@ -37,7 +37,11 @@ recorded to the counted wrappers' ``launches``
 counts every graph's warm-up iterations, captures and replays by name.
 The warm-up and the capture are the spans ``graph.warmup`` and
 ``graph.capture``, and a run's first replay is timed on the host
-(:mod:`border_tpu_torch.utils.profiling`).
+(:mod:`border_tpu_torch.utils.profiling`).  At its capture a graph's kernel
+nodes are counted once (libcuda's ``cuGraphGetNodes`` over the captured
+``cudaGraph_t``) into :data:`nodes`, with the agent updates its body makes:
+a replay launches every node, and a profiler can lose some of a replay's
+kernel records.
 
 ``run(n)`` takes any ``n`` from call to call: a host-env iteration replays
 its device step once and its update burst as often as the iteration's
@@ -70,6 +74,11 @@ WARMUP = 3
 # warm-up iterations, captures and replays of every LoopGraph so far; a
 # capture counted after set-up names the graph that was built again
 counts: collections.Counter = collections.Counter()
+# ``nodes[graph name] = (kernel nodes, updates)``: the kernel nodes of the
+# graph's newest capture and the agent updates one iteration of its body
+# makes (0 for an env step); the newest capture is the last entry
+nodes: Dict[str, tuple] = {}
+CU_GRAPH_NODE_TYPE_KERNEL = 0
 
 
 class GraphCaptureError(BorderTpuError, RuntimeError):
@@ -142,6 +151,34 @@ def add_metrics_(sums: Dict[str, torch.Tensor], metrics: Dict[str, Any]) -> None
         sums[k].add_(v)
 
 
+def kernel_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The kernel nodes of a captured graph made with ``keep_graph=True``
+    (libcuda's ``cuGraphGetNodes`` and ``cuGraphNodeGetType``)."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    size_p, node_p = ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_void_p)
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, node_p, size_p]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    cuda.cuGraphGetNodes.restype = cuda.cuGraphNodeGetType.restype = ctypes.c_int
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+
+    def check(rc: int, call: str) -> None:
+        if rc:
+            raise GraphCaptureError(f"{call} failed with CUresult {rc}")
+
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    found = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, found, ctypes.byref(n)), "cuGraphGetNodes")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in found[:n.value]:
+        check(cuda.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        kernels += kind.value == CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
 @contextlib.contextmanager
 def no_collection():
     """Collects the cyclic garbage, then keeps the collector from running
@@ -188,12 +225,16 @@ class LoopGraph:
     place that keep their addresses between iterations.  ``generators``:
     every ``torch.Generator`` it draws from (each replay then draws anew).
     ``objects``: what the body was built for; :meth:`bound_to` tells a
-    caller whether it may replay this graph for other objects."""
+    caller whether it may replay this graph for other objects.
+    ``updates``: the agent updates one iteration of the body makes (kept
+    beside the graph's kernel nodes in :data:`nodes`)."""
 
     def __init__(self, name: str, step: Callable[[], None],
                  generators: Sequence[torch.Generator],
-                 objects: Sequence[Any] = (), warmup: int = WARMUP):
+                 objects: Sequence[Any] = (), warmup: int = WARMUP,
+                 updates: int = 0):
         self.name = name
+        self.updates = updates
         self.step = step
         self.generators = list(generators)
         self.objects = list(objects)
@@ -257,7 +298,9 @@ class LoopGraph:
             collectives.counts[key] += k * n
 
     def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
+        # the captured cudaGraph_t is kept to count its nodes, and the
+        # executable graph instantiated here, as capture_end would
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = [fn.captured for fn in COUNTED]
@@ -286,4 +329,7 @@ class LoopGraph:
                               if fn.captured != b]
         self.collectives_each = dict(collectives.captured - before_collectives)
         self.edges = profiling.take_captured()
+        nodes.pop(self.name, None)
+        nodes[self.name] = (kernel_nodes(graph), self.updates)
+        graph.instantiate()
         self.graph = graph

@@ -128,7 +128,8 @@ def graphed_updates(graphs: Dict[str, LoopGraph], agent: Agent, buffer,
             _same_states(st, agent_state, bs, buf_state)
             add_metrics_(sums, metrics)
 
-        loop = graphs["update"] = LoopGraph("update", step, [gen], objects)
+        loop = graphs["update"] = LoopGraph("update", step, [gen], objects,
+                                            updates=1)
         loop.sums = sums
     for v in loop.sums.values():
         v.zero_()
@@ -474,7 +475,8 @@ class Trainer:
                     for i in range(ups):
                         update(_slice_batch(big, i * B, (i + 1) * B), sums)
 
-            loop = self._graphs[name] = LoopGraph(name, step, [gen], objects)
+            loop = self._graphs[name] = LoopGraph(name, step, [gen], objects,
+                                                  updates=ups)
             loop.sums, loop.held = sums, held
         elif ups == 1:
             copy_into(loop.held, head)

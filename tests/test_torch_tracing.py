@@ -7,8 +7,9 @@ ring's bound and ``write_chunks``, ``metrics_to_host`` called from outside
 the trainer, the gap and the captured update split over stand-in events
 (the CPU has none), and each reader.  On the card (marked ``cuda``, skipped
 here): the events' device times, no capture after set-up, the update graph
-of an untraced run equal to a traced one's, and the ``detail`` split
-against the update phase.
+of an untraced run equal to a traced one's (its kernel nodes, DQN's at
+``chunk`` and SAC's at ``detail``), and the ``detail`` split against the
+update phase.
 
 This file imports no JAX, so on the GPU machine it runs as
 
@@ -368,6 +369,40 @@ def test_detail_level_splits_the_update():
     assert "update_split_ms" not in rec  # nothing captured on the CPU
 
 
+def _sac_trainer(device="cpu", hidden=(16, 16), num_envs=4, batch_size=8):
+    from border_tpu_torch.agents import SAC, SACConfig
+    from border_tpu_torch.envs import make
+    from border_tpu_torch.replay import ReplayBuffer
+    from border_tpu_torch.train import Trainer, TrainerConfig
+
+    cfg = TrainerConfig(num_envs=num_envs, steps_per_chunk=4, batch_size=batch_size,
+                        opt_interval=8, warmup_period=0)
+    agent = SAC(SACConfig(actor_hidden=hidden, critic_hidden=hidden))
+    return Trainer(make("Pendulum-v1"), agent, ReplayBuffer(256, device=device), cfg,
+                   device=device)
+
+
+SAC_SPLIT = ("update.sample", "update.critic", "update.actor", "update.alpha",
+             "update.target", "update.priority", "update.priority")
+
+
+def test_detail_level_splits_the_sac_update_in_order():
+    """SAC's update under ``detail``: the trainer's sample, then the critics'
+    step, the actor's, the temperature's, the soft target update and the
+    TD error's forward (SAC's, then the trainer's priority write), each
+    update in this order; at the default level none."""
+    loop = _Loop(_sac_trainer()).run(2)
+    assert not any(s["name"].startswith("update.") for s in profiling.spans())
+    profiling.set_level("detail")
+    profiling.reset()
+    loop.run(2)
+    split = [s for s in profiling.spans() if s["name"].startswith("update.")]
+    assert {s["parent"] for s in split} == {"chunk.update"}
+    names = [s["name"] for s in split]
+    updates = 2 * loop.tr.updates_per_chunk
+    assert names == list(SAC_SPLIT) * updates
+
+
 @pytest.mark.parametrize("level", ["chunk", "off"])
 def test_host_env_trainer_times_its_collect_wait_with_spans(level):
     """The host-env trainer's waits for the envs are spans;
@@ -424,6 +459,24 @@ def test_reader_reads_nothing_from_a_program_without_records(metric, monkeypatch
     assert _reader(metric).read({}) is None
 
 
+def test_update_graph_nodes_reads_the_newest_graph_that_makes_updates(monkeypatch):
+    from border_tpu_torch.train import graphs
+
+    read = _reader("update_graph_nodes").read
+    monkeypatch.setattr(graphs, "nodes", {"env step (explore)": (90, 0)})
+    assert read({}) is None
+    monkeypatch.setattr(graphs, "nodes", {"update": (236, 1), "env step (explore)": (90, 0),
+                                          "sample-batch updates": (600, 4)})
+    assert read({}) == 150.0
+
+
+def test_update_graph_nodes_reads_nothing_from_a_program_without_the_count(monkeypatch):
+    from border_tpu_torch.train import graphs
+
+    monkeypatch.delattr(graphs, "nodes")
+    assert _reader("update_graph_nodes").read({}) is None
+
+
 # -- on the card ----------------------------------------------------------------------
 
 def _card():
@@ -445,22 +498,6 @@ def _card_trainer(per=False, batch_size=128):
                    TrainerConfig(num_envs=128, steps_per_chunk=16,
                                  batch_size=batch_size, opt_interval=32,
                                  warmup_period=0))
-
-
-def _device_ops(run):
-    """Kernel, copy and set launches of ``run()`` by name (the rule of
-    the benchmark's ``launches_per_update``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    annotations = {e.name for e in prof.events()
-                   if getattr(e, "is_user_annotation", False)}
-    cuda = torch.autograd.DeviceType.CUDA
-    return collections.Counter(e.name for e in prof.events()
-                               if e.device_type == cuda and e.name not in annotations)
 
 
 @pytest.mark.cuda
@@ -496,25 +533,41 @@ def test_no_graph_is_captured_after_set_up_on_card():
     assert not any(r["built"] for r in profiling.chunk_records()[2:])
 
 
+def _update_graph_nodes(make_trainer, levels) -> dict:
+    """The kernel nodes of the update graph each tracing level's set-up
+    captures (``graphs.nodes``, counted at capture: a profiler can lose
+    kernel records of a replay)."""
+    from border_tpu_torch.train import graphs
+
+    nodes = {}
+    for level in levels:
+        profiling.set_level(level)
+        _Loop(make_trainer()).run(3)
+        nodes[level] = graphs.nodes["update"]
+    return nodes
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("per", [False, True])
 def test_tracing_leaves_the_update_graph_unchanged_on_card(per):
-    """The update graph captured with chunk tracing on launches the same
-    kernels a replay as one captured with tracing off.  (A process's first
-    profiler session can list a graph's memset and copy nodes otherwise
-    than its later ones: both phases are profiled once before.)"""
+    """The update graph captured with chunk tracing on holds the same
+    kernel nodes as one captured with tracing off."""
     _card()
-    phases = {}
-    for level in ("off", "chunk"):
-        profiling.set_level(level)
-        loop = _Loop(_card_trainer(per)).run(3)
-        ag, _, buf = loop.states
-        phases[level] = lambda lp=loop, a=ag, b=buf: lp.tr._update_scan(a, b, lp.gen)
-    for run in phases.values():
-        _device_ops(run)
-    ops = {level: _device_ops(run) for level, run in phases.items()}
-    assert ops["off"] == ops["chunk"]
-    assert sum(ops["off"].values()) > 0
+    nodes = _update_graph_nodes(lambda: _card_trainer(per), ("off", "chunk"))
+    assert nodes["off"] == nodes["chunk"]
+    assert nodes["off"][0] > 0 and nodes["off"][1] == 1
+
+
+@pytest.mark.cuda
+def test_the_sac_update_graph_holds_the_same_kernels_at_detail_on_card():
+    """SAC's update split at ``detail`` adds only event nodes to its graph:
+    its kernel nodes are those of the graph captured with tracing off."""
+    _card()
+    nodes = _update_graph_nodes(
+        lambda: _sac_trainer("cuda", hidden=(256, 256), num_envs=128, batch_size=256),
+        ("off", "detail"))
+    assert nodes["off"] == nodes["detail"]
+    assert nodes["off"][0] > 0
 
 
 @pytest.mark.cuda

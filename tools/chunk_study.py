@@ -34,8 +34,6 @@ from portbench import run  # noqa: E402
 from portbench.chunks import window_median  # noqa: E402
 
 METRICS = ("span_env_step_ms", "span_update_ms", "chunk_gap_ms", "first_launch_ms")
-SPLIT = ("update.sample", "update.forward", "update.backward",
-         "update.optimizer", "update.target", "update.priority")
 
 
 def _bins(window, t0_ns, width):
@@ -160,7 +158,8 @@ def main(argv=None) -> int:
                     for k in ("chunk", "chunk.env", "chunk.update",
                               "chunk.sync_counters", "metrics_to_host")},
         "update_split_ms": {k: window_median(
-            lambda r, k=k: r.get("update_split_ms", {}).get(k)) for k in SPLIT},
+            lambda r, k=k: r.get("update_split_ms", {}).get(k))
+            for k in sorted({k for r in window for k in r.get("update_split_ms", {})})},
         "bins": _bins(window, window[0]["t_ns"], args.bin) if window else [],
         "setup_spans_s": setup_spans, "graph_counts_setup": {
             f"{k[0]}/{k[1]}": v for k, v in built.items()},
