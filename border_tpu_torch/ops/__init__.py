@@ -8,10 +8,17 @@ kernel against it on the card.
 
 from border_tpu_torch.models.cnn import space_to_depth
 from border_tpu_torch.ops.frame_gather import gather_frames, gather_frames_ref
+from border_tpu_torch.ops.sum_tree import (
+    sum_tree_sample,
+    sum_tree_sample_ref,
+    sum_tree_update,
+    sum_tree_update_ref,
+)
 
 # the wrappers that count their kernel's launches (``launches``) and the
 # launches they record into a capturing CUDA graph (``captured``); beside
-# the gather's, the torso's forwards in the space-to-depth layout
-COUNTED = (gather_frames, space_to_depth)
+# the kernels', the torso's forwards in the space-to-depth layout
+COUNTED = (gather_frames, space_to_depth, sum_tree_update, sum_tree_sample)
 
-__all__ = ["COUNTED", "gather_frames", "gather_frames_ref"]
+__all__ = ["COUNTED", "gather_frames", "gather_frames_ref", "sum_tree_sample",
+           "sum_tree_sample_ref", "sum_tree_update", "sum_tree_update_ref"]

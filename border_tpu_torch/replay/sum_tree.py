@@ -7,10 +7,12 @@ Layout: ``tree[2 * capacity]`` float32 (capacity is a power of two).
 priorities ``p = (|td| + eps)^alpha``.  A min tree of the same shape gives
 the "normalize over All" importance weights their maximum.
 
-Batched updates and a batched prefix-sum descent: each is ``depth`` =
-log2(capacity) rounds of small gathers and scatters on the device, with no
-device→host sync.  ``update`` writes the trees in place and returns the
-same state, as the port's ring does.
+Batched updates and a batched prefix-sum descent over all ``depth`` =
+log2(capacity) levels, with no device→host sync: on the card each is one
+launch of a hand-written kernel, on the CPU a plain loop of a few torch ops
+a level (:mod:`border_tpu_torch.ops.sum_tree`; the two agree bit for bit).
+``update`` writes the trees in place and returns the same state, as the
+port's ring does.
 
 Two things differ from the JAX tree, both where its result is unspecified
 or faulty:
@@ -29,7 +31,7 @@ or faulty:
   extra test the sampled leaf always has mass while the root has;
   wherever the JAX descent lands on a live leaf, this one lands on the
   same leaf.  Both children come from one paired read, so the test costs
-  two elementwise launches a level and no further gather.
+  no further read.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from typing import Optional, Union
 
 import torch
 
-from border_tpu_torch.envs.pixel import true_div
+from border_tpu_torch.ops.sum_tree import load, sum_tree_sample, sum_tree_update
 from border_tpu_torch.utils.counters import Count
 from border_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -67,7 +69,8 @@ class SumTree:
         self.capacity = _next_pow2(capacity)
         self.depth = self.capacity.bit_length() - 1  # log2(capacity)
         self.device = resolve_device(device)
-        self._shifts = torch.arange(1, self.depth + 1, device=self.device)[:, None]
+        if self.device.type == "cuda":
+            load()  # the kernels' build belongs to set-up, not the first chunk
 
     def init(self) -> SumTreeState:
         return SumTreeState(
@@ -92,21 +95,8 @@ class SumTree:
         maintenance): it gets no sampling mass and enters the min tree as
         +inf, like an unwritten leaf.  Live priorities are always > 0.
         """
-        priorities = priorities.float()
-        leaves = indices.long() + self.capacity
-        sum_t, min_t = state.sum_tree, state.min_tree
-        sum_t.scatter_reduce_(0, leaves, priorities, "amax", include_self=False)
-        p = sum_t[leaves]
-        min_t[leaves] = torch.where(p > 0, p, float("inf"))
-        parents = leaves[None, :] >> self._shifts  # [depth, K]
-        lefts = parents * 2
-        rights = lefts + 1
-        for par, left, right in zip(parents, lefts, rights):
-            sum_t[par] = sum_t[left] + sum_t[right]
-            min_t[par] = torch.minimum(min_t[left], min_t[right])
-        # in place: a captured graph reads this tensor's address
-        torch.maximum(state.max_priority, priorities.max(),
-                      out=state.max_priority)
+        sum_tree_update(state.sum_tree, state.min_tree, state.max_priority,
+                        indices.long(), priorities.float())
         return state
 
     def total(self, state: SumTreeState) -> torch.Tensor:
@@ -124,24 +114,10 @@ class SumTree:
         one level per round.  ``u`` [batch_size] injects the uniform draws
         (float32 in [0, 1)); otherwise they come from ``gen``.  Returns leaf
         indices, int64."""
-        sum_t = state.sum_tree
         if u is None:
             u = torch.rand((batch_size,), generator=gen, dtype=torch.float32,
-                           device=sum_t.device)
-        # divided by a tensor: CUDA multiplies by a Python divisor's
-        # reciprocal, which strays from the CPU's division at batch sizes
-        # that are not powers of two
-        mass = (torch.arange(batch_size, dtype=torch.float32,
-                             device=sum_t.device) + u) * true_div(
-                                 sum_t[1], batch_size)
-        nodes = torch.ones((batch_size,), dtype=torch.int64, device=sum_t.device)
-        pairs = sum_t.view(self.capacity, 2)  # node n's children: pairs[n]
-        for _ in range(self.depth):
-            left_sum, right_sum = pairs[nodes].unbind(1)
-            go_right = (mass >= left_sum) & (right_sum > 0)
-            nodes = 2 * nodes + go_right
-            mass = torch.where(go_right, mass - left_sum, mass)
-        return nodes - self.capacity
+                           device=state.sum_tree.device)
+        return sum_tree_sample(state.sum_tree, u)
 
     @torch.no_grad()
     def weights(self, state: SumTreeState, indices: torch.Tensor,

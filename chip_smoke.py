@@ -6,9 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each (any failure exits non-zero with no result line):
 
 1. the card's name and power limit, as nvidia-smi gives them;
-2. the CUDA kernel border_tpu_torch/csrc/frame_gather.cu is built with
-   nvcc for sm_90a and, at the same time, the C++ host envs cpp/envpool.cpp
-   with the host compiler (g++, or $CXX) and cpp/Makefile's flags;
+2. the CUDA kernels border_tpu_torch/csrc/frame_gather.cu and sum_tree.cu
+   are built with nvcc for sm_90a and, at the same time, the C++ host envs
+   cpp/envpool.cpp with the host compiler (g++, or $CXX) and
+   cpp/Makefile's flags;
 3. each kernel against its plain PyTorch version on the card, bitwise: the
    frame gather at the main-path shape (a 1024·256-frame 84×84 uint8 ring,
    512×5 indices), at 512×4 indices (separate mode and n-step), at 256×5
@@ -31,7 +32,13 @@ Phases, one line each (any failure exits non-zero with no result line):
    1e-4), and the sum tree at 2^19 leaves: the same
    update batches (duplicate indices among them) and the same injected
    uniforms on the card and on the CPU give the same sampled leaves and,
-   to 1e-6 relative, the same totals and weights;
+   to 1e-6 relative, the same totals and weights; then the sum tree's two
+   kernels against their plain loops on the card, bitwise, at the
+   prioritized cell's shapes (2^20 leaves: a push of 1024 envs x 5 slots,
+   a priority write of 512 with duplicate indices, a descent of 512), and
+   each of the four timed as a CUDA graph of SUM_TREE_REPS calls (the
+   trainer replays them so), beside a descent of one lane (the chain of
+   20 dependent levels alone) and the bytes over 3.35 TB/s;
 6. the uniform path: Trainer.train() on Pong at the bench.py config (1024
    envs, 32 steps a chunk, batch 512, 8 gradient samples per transition,
    bf16 AtariCNN), until two update chunks of 512 updates have run, the
@@ -248,6 +255,7 @@ NUM_ENVS, CAPACITY, FRAME_HW, STACK = 1024, 256, (84, 84), 4
 BATCH, STEPS_PER_CHUNK, OPT_INTERVAL = 512, 32, 64
 UPDATE_CHUNKS = 2
 TIMED_LAUNCHES = 60
+SUM_TREE_LEAVES, SUM_TREE_REPS = 2**20, 20  # the dqn-pong.per cell's tree
 # the prioritized path (the pong_per learning-gate config)
 PER_CAPACITY, EVAL_EPISODES, EVAL_MAX_STEPS = 512, 10, 200
 SLICE_GROUP = 64  # the JAX buffer's default
@@ -363,10 +371,12 @@ def main(only=None) -> None:
     cxx_version = subprocess.run([cxx, "--version"], capture_output=True,
                                  text=True, timeout=60).stdout.splitlines()[0]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futures = {n: pool.submit(timed_build, n) for n in ("frame_gather", "envpool")}
+        futures = {n: pool.submit(timed_build, n)
+                   for n in ("frame_gather", "sum_tree", "envpool")}
         built = {n: f.result() for n, f in futures.items()}
     print(f"build: frame_gather.cu with nvcc for sm_90a in "
-          f"{built['frame_gather']:.2f} s; cpp/envpool.cpp with {cxx} "
+          f"{built['frame_gather']:.2f} s, sum_tree.cu in "
+          f"{built['sum_tree']:.2f} s; cpp/envpool.cpp with {cxx} "
           f"({cxx_version}) and cpp/Makefile's flags {' '.join(_build.CXX_FLAGS)} "
           f"in {built['envpool']:.2f} s, into {_build.library_path('envpool')}",
           flush=True)
@@ -469,6 +479,7 @@ def main(only=None) -> None:
     reference_checks(torch, dev)
     actor_critic_checks(torch, dev)
     sum_tree_check(torch, dev)
+    tree_kernels = sum_tree_kernels(torch, dev)
 
     phase_s = {}
 
@@ -530,7 +541,7 @@ def main(only=None) -> None:
         # the third: [256, 5] indices (the Seaquest path's batch)
         "batch_256": {k: timings[SEAQUEST_BATCH, STACK + 1][k] for k in
                       ("ms", "plain_ms", "bound_ms", "library_ms")},
-    }]
+    }, *tree_kernels]
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     if only is not None:
         print(f"partial run of phases 1-5 and {sorted(only)} passed in "
@@ -797,6 +808,125 @@ def sum_tree_check(torch, dev) -> None:
           f"with duplicate indices, {BATCH} injected uniforms: same leaves on "
           f"the card and the CPU, total {total_g:.6f} vs {total_c:.6f}, "
           f"weights within 1e-6 relative", flush=True)
+
+
+def sum_tree_kernels(torch, dev) -> list:
+    """The sum tree's update and descent kernels against their plain loops
+    on the same card tensors, bitwise, at the prioritized cell's shapes;
+    then each timed as a captured graph of SUM_TREE_REPS calls, as the
+    trainer's graphs replay them.  Returns the result line's entries."""
+    from border_tpu_torch.ops import (sum_tree_sample, sum_tree_sample_ref,
+                                      sum_tree_update, sum_tree_update_ref)
+    from border_tpu_torch.replay import SumTree
+
+    cap, depth = SUM_TREE_LEAVES, SUM_TREE_LEAVES.bit_length() - 1
+    g = torch.Generator(device=dev).manual_seed(5)
+    kern = SumTree(cap, device=dev).init()
+    idx = torch.randperm(cap, generator=g, device=dev)[: cap // 2]
+    pr = torch.rand(idx.shape, generator=g, device=dev) * 2 + 0.01
+    pr[torch.rand(idx.shape, generator=g, device=dev) < 0.2] = 0.0
+    sum_tree_update_ref(kern.sum_tree, kern.min_tree, kern.max_priority, idx, pr)
+    plain = type(kern)(*(x.clone() for x in (kern.sum_tree, kern.min_tree,
+                                              kern.max_priority)))
+    # FrameReplayBuffer._tree_push: 1024 envs x 5 slots, 4 zeroed and one
+    # entering at the max priority
+    envs, slots = 1024, cap // 1024
+    push_idx = ((torch.arange(envs, device=dev) * slots)[:, None]
+                + (17 + torch.arange(STACK + 1, device=dev))).reshape(-1)
+    enters = torch.tensor([0.0] * STACK + [1.0], device=dev)
+
+    def push_prio(st):
+        return (enters * st.max_priority)[None, :].expand(envs, -1).reshape(-1)
+
+    upd_idx = torch.randint(0, cap, (BATCH,), generator=g, device=dev)
+    upd_idx[BATCH // 2:] = upd_idx[: BATCH // 2]  # two priorities each
+    upd_pr = torch.rand(BATCH, generator=g, device=dev) * 3 + 1e-3
+    u = torch.rand(BATCH, generator=g, device=dev)
+    u[-1] = 1 - 2.0**-24
+    leaves = []
+    for st, update, sample in ((kern, sum_tree_update, sum_tree_sample),
+                               (plain, sum_tree_update_ref, sum_tree_sample_ref)):
+        update(st.sum_tree, st.min_tree, st.max_priority, push_idx, push_prio(st))
+        update(st.sum_tree, st.min_tree, st.max_priority, upd_idx, upd_pr)
+        leaves.append(sample(st.sum_tree, u))
+    torch.cuda.synchronize()
+    for name in ("sum_tree", "min_tree", "max_priority"):
+        if not torch.equal(getattr(kern, name), getattr(plain, name)):
+            fail(f"sum-tree kernels: {name} differs from the plain loop's")
+    if not torch.equal(*leaves):
+        fail("sum-tree kernels: the descent's leaves differ from the plain loop's")
+
+    def graph_us(fn) -> float:
+        """Device µs a call of ``fn`` inside a captured graph (median of
+        five replays of SUM_TREE_REPS calls)."""
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            fn()  # warm-up off the capture
+        torch.cuda.current_stream().wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(SUM_TREE_REPS):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda._sleep(50_000_000)
+        ev[0].record()
+        for e in ev[1:]:
+            graph.replay()
+            e.record()
+        torch.cuda.synchronize()
+        return 1e3 * statistics.median(
+            a.elapsed_time(b) for a, b in zip(ev, ev[1:])) / SUM_TREE_REPS
+
+    st, ps = kern, plain
+    u1 = u[:1].clone()
+    cases = {
+        # (kernel, plain, bytes: each touched node's 4-byte sum and min read
+        # twice, as both children, and written once, plus the inputs)
+        "push": (lambda: sum_tree_update(st.sum_tree, st.min_tree, st.max_priority,
+                                         push_idx, push_prio(st)),
+                 lambda: sum_tree_update_ref(ps.sum_tree, ps.min_tree,
+                                             ps.max_priority, push_idx,
+                                             push_prio(ps)),
+                 push_idx.numel() * (depth * 2 * 12 + 12)),
+        "update": (lambda: sum_tree_update(st.sum_tree, st.min_tree,
+                                           st.max_priority, upd_idx, upd_pr),
+                   lambda: sum_tree_update_ref(ps.sum_tree, ps.min_tree,
+                                               ps.max_priority, upd_idx, upd_pr),
+                   BATCH * (depth * 2 * 12 + 12)),
+        "descent": (lambda: sum_tree_sample(st.sum_tree, u),
+                    lambda: sum_tree_sample_ref(ps.sum_tree, u),
+                    BATCH * (depth * 8 + 12)),
+        "descent_1": (lambda: sum_tree_sample(st.sum_tree, u1),
+                      lambda: sum_tree_sample_ref(ps.sum_tree, u1),
+                      depth * 8 + 12),
+    }
+    launches0 = (sum_tree_update.launches, sum_tree_sample.launches)
+    times = {}
+    for name, (kernel, ref, nbytes) in cases.items():
+        times[name] = {"us": graph_us(kernel), "plain_us": graph_us(ref),
+                       "bound_us": 1e6 * nbytes / HBM_BYTES_PER_S,
+                       "bound_by": "bytes; the chain of %d levels" % depth}
+        print(f"timing sum tree {name} at 2^{depth} leaves (graph of "
+              f"{SUM_TREE_REPS} calls): " + json.dumps(
+                  {k: (round(v, 4) if isinstance(v, float) else v)
+                   for k, v in times[name].items()}), flush=True)
+    sum_tree_update.launches, sum_tree_sample.launches = launches0
+    print(f"kernel check: the sum-tree update (push of {push_idx.numel()}, "
+          f"write of {BATCH} with duplicates) and descent ({BATCH} lanes, "
+          f"u = 1 - 2^-24 among them) bitwise equal to the plain loops at "
+          f"2^{depth} leaves", flush=True)
+    del kern, plain
+    torch.cuda.empty_cache()
+    return [{"name": "sum_tree_update", "route": "cuda",
+             "source": "border_tpu_torch/csrc/sum_tree.cu", "replaces": None,
+             "match": True, "push": times["push"], "update": times["update"]},
+            {"name": "sum_tree_sample", "route": "cuda",
+             "source": "border_tpu_torch/csrc/sum_tree.cu", "replaces": None,
+             "match": True, "descent": times["descent"],
+             "descent_1": times["descent_1"]}]
 
 
 def actor_critic_checks(torch, dev) -> None:

@@ -202,6 +202,89 @@ def test_sum_tree_on_card_matches_cpu_path():
         torch.testing.assert_close(w[dev].cpu(), w["cpu"], rtol=1e-6, atol=0.0)
 
 
+def _tree_updates(case, cap, g):
+    """The update batches of a card case as ``(indices, priorities of a
+    state)`` pairs: the priorities may read the state's own scalar."""
+    dev = torch.device("cuda")
+    if case == "push":  # FrameReplayBuffer._tree_push: 1024 envs x 5 slots
+        envs, slots = 1024, cap // 1024
+        base = (torch.arange(envs, device=dev) * slots)[:, None]
+        enters = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0], device=dev)
+        return [((base + (p + torch.arange(5, device=dev)) % slots).reshape(-1),
+                 lambda st: (enters * st.max_priority)[None, :]
+                 .expand(envs, -1).reshape(-1))
+                for p in (0, 3, slots - 2)]
+    if case == "empty":
+        return [(torch.zeros(0, dtype=torch.int64, device=dev),
+                 lambda st: torch.zeros(0, device=dev))]
+    if case == "stride0":  # the flat ring's push: max_priority.expand(n)
+        return [(torch.randint(0, cap, (512,), generator=g, device=dev),
+                 lambda st: st.max_priority.expand(512))]
+    if case == "left_half":  # the right subtree's sum stays zero
+        idx = torch.randint(0, cap // 2, (512,), generator=g, device=dev)
+        pr = torch.rand(512, generator=g, device=dev) + 0.01
+        return [(idx, lambda st: pr)]
+    out = []
+    for _ in range(3):  # K = 512, every index twice with two priorities
+        idx = torch.randint(0, cap, (512,), generator=g, device=dev)
+        idx[256:] = idx[:256]
+        pr = torch.rand(512, generator=g, device=dev) * 5
+        pr[torch.rand(512, generator=g, device=dev) < 0.1] = 0.0
+        out.append((idx, lambda st, pr=pr: pr))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, cap", [
+    ("push", 2**20), ("dups", 2**20), ("empty", 4096), ("stride0", 2**20),
+    ("left_half", 64), ("dups", 64), ("dups", 4096), ("push", 4096)])
+def test_sum_tree_kernels_match_plain_version_on_card(case, cap):
+    """The update and descent kernels against the plain loop on the same
+    card tensors, bitwise: the trees, the max priority and the leaves of
+    descents at B = 512 (u = 1 - 2^-24 among the draws) and B = 37."""
+    from border_tpu_torch.ops import (sum_tree_sample, sum_tree_sample_ref,
+                                      sum_tree_update, sum_tree_update_ref)
+    from border_tpu_torch.replay import SumTree
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(cap + len(case))
+    tree = SumTree(cap, device=dev)
+    kern = tree.init()
+    # a tree already in use: half the leaves live, a fifth of them dead
+    idx = torch.randperm(cap, generator=g, device=dev)[: cap // 2]
+    pr = torch.rand(idx.shape, generator=g, device=dev) * 2 + 0.01
+    pr[torch.rand(idx.shape, generator=g, device=dev) < 0.2] = 0.0
+    if case == "left_half":
+        kern.sum_tree.zero_()
+        kern.min_tree.fill_(float("inf"))
+    else:
+        sum_tree_update_ref(kern.sum_tree, kern.min_tree, kern.max_priority,
+                            idx, pr)
+    plain = type(kern)(*(x.clone() for x in (kern.sum_tree, kern.min_tree,
+                                              kern.max_priority)))
+    n0, s0 = sum_tree_update.launches, sum_tree_sample.launches
+    updates = _tree_updates(case, cap, g)
+    for indices, prio in updates:
+        sum_tree_update(kern.sum_tree, kern.min_tree, kern.max_priority,
+                        indices, prio(kern))
+        sum_tree_update_ref(plain.sum_tree, plain.min_tree, plain.max_priority,
+                            indices, prio(plain))
+        torch.cuda.synchronize()
+        for name in ("sum_tree", "min_tree", "max_priority"):
+            assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    for b in (512, 37):
+        u = torch.rand(b, generator=g, device=dev)
+        u[-1] = 1 - 2.0**-24
+        got = sum_tree_sample(kern.sum_tree, u)
+        assert torch.equal(got, sum_tree_sample_ref(plain.sum_tree, u))
+        assert (kern.sum_tree[cap + got] > 0).all()  # never a dead leaf
+        if case == "left_half":
+            assert (got < cap // 2).all()
+    assert sum_tree_update.launches == n0 + sum(
+        i.numel() > 0 for i, _ in updates)
+    assert sum_tree_sample.launches == s0 + 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode, per_sample", [
     (dict(sample_mode="union"), 1), (dict(sample_mode="separate"), 2),
@@ -242,10 +325,13 @@ def test_every_mode_reads_through_the_kernel_and_matches_cpu_path(mode, per_samp
 def test_per_train_checkpoint_resume_on_card(tmp_path):
     """A small prioritized run on the card, checkpointed every chunk, and a
     second trainer resumed from the first checkpoint: bitwise the same
-    parameters, tree and ring; one gather launch per update."""
+    parameters, tree and ring; one gather launch per update, and one
+    descent and one tree-update launch an update plus one tree update a
+    push."""
     from border_tpu_torch.agents import DQN, DQNConfig
     from border_tpu_torch.envs import make
     from border_tpu_torch.models import AtariCNN
+    from border_tpu_torch.ops import sum_tree_sample, sum_tree_update
     from border_tpu_torch.replay import FrameReplayBuffer, PerConfig
     from border_tpu_torch.train import Evaluator, Trainer, TrainerConfig
     from border_tpu_torch.utils import CheckpointManager
@@ -266,9 +352,15 @@ def test_per_train_checkpoint_resume_on_card(tmp_path):
             checkpoint_interval=upc if manager else 0)
 
     launches = frame_gather.gather_frames.launches
+    tree_launches = sum_tree_update.launches, sum_tree_sample.launches
     want = trainer(3 * upc).train()
     torch.cuda.synchronize()
     assert frame_gather.gather_frames.launches == launches + 3 * upc
+    # the graphed chunks: a descent and a priority write an update, a tree
+    # update a push (an env step), each one launch
+    assert sum_tree_sample.launches == tree_launches[1] + 3 * upc
+    assert sum_tree_update.launches == (tree_launches[0] + 3 * upc
+                                        + want.buffer_state.total)
     mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
     trainer(upc, mgr).train()
     assert mgr.all_steps() == [upc]

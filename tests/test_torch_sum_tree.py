@@ -160,3 +160,82 @@ def test_weights_match(normalize_all):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
     if not normalize_all:
         assert got.max().item() == 1.0
+
+
+def _cpu_state(seed=3):
+    tt = SumTree(CAP, device="cpu")
+    ts = tt.init()
+    for idx, pr in _batches(2, 24, seed=seed):
+        tt.update(ts, torch.from_numpy(idx), torch.from_numpy(pr))
+    return ts
+
+
+def _clone(ts):
+    return type(ts)(*(x.clone() for x in (ts.sum_tree, ts.min_tree, ts.max_priority)))
+
+
+@pytest.mark.parametrize("k", [0, 1, 24])
+def test_wrappers_on_cpu_run_the_plain_loop_and_count_no_launch(k):
+    """On CPU tensors the kernels' wrappers are the plain versions, K = 0
+    included (no change), and count no launch."""
+    from border_tpu_torch.ops import (sum_tree_sample, sum_tree_sample_ref,
+                                      sum_tree_update, sum_tree_update_ref)
+
+    ts, ref = _cpu_state(), _cpu_state()
+    launches = (sum_tree_update.launches, sum_tree_update.captured,
+                sum_tree_sample.launches, sum_tree_sample.captured)
+    g = torch.Generator().manual_seed(k)
+    idx = torch.randint(0, CAP, (k,), generator=g)
+    pr = torch.rand(k, generator=g)
+    before = _clone(ts)
+    sum_tree_update(ts.sum_tree, ts.min_tree, ts.max_priority, idx, pr)
+    sum_tree_update_ref(ref.sum_tree, ref.min_tree, ref.max_priority, idx, pr)
+    for name in ("sum_tree", "min_tree", "max_priority"):
+        assert torch.equal(getattr(ts, name), getattr(ref, name)), name
+        if k == 0:
+            assert torch.equal(getattr(ts, name), getattr(before, name)), name
+    u = torch.rand(16, generator=g)
+    assert torch.equal(sum_tree_sample(ts.sum_tree, u),
+                       sum_tree_sample_ref(ref.sum_tree, u))
+    assert (sum_tree_update.launches, sum_tree_update.captured,
+            sum_tree_sample.launches, sum_tree_sample.captured) == launches
+
+
+def test_wrappers_raise_on_a_device_with_no_kernel_and_on_bad_inputs():
+    from border_tpu_torch.ops import sum_tree_sample, sum_tree_update
+
+    meta = SumTree(CAP, device="meta").init()
+    with pytest.raises(ValueError, match="no sum-tree kernel"):
+        sum_tree_update(meta.sum_tree, meta.min_tree, meta.max_priority,
+                        torch.zeros(3, dtype=torch.int64, device="meta"),
+                        torch.ones(3, device="meta"))
+    with pytest.raises(ValueError, match="no sum-tree kernel"):
+        sum_tree_sample(meta.sum_tree, torch.rand(4, device="meta"))
+    ts = _cpu_state()
+    args = ts.sum_tree, ts.min_tree, ts.max_priority
+    with pytest.raises(TypeError, match="int64"):
+        sum_tree_update(*args, torch.zeros(3, dtype=torch.int32), torch.ones(3))
+    with pytest.raises(TypeError, match="float32"):
+        sum_tree_update(*args, torch.zeros(3, dtype=torch.int64),
+                        torch.ones(3, dtype=torch.float64))
+    with pytest.raises(ValueError, match="3 indices but 2 priorities"):
+        sum_tree_update(*args, torch.zeros(3, dtype=torch.int64), torch.ones(2))
+    with pytest.raises(ValueError, match="power of two"):
+        sum_tree_sample(torch.zeros(2 * CAP + 2), torch.rand(4))
+    with pytest.raises(TypeError, match="float32"):
+        sum_tree_sample(ts.sum_tree, torch.rand(4, dtype=torch.float64))
+
+
+def test_update_takes_a_stride_0_priority_of_its_own_max():
+    """The flat ring's push writes ``max_priority.expand(n)``: a stride-0
+    view of the state's own scalar, read before the scalar is updated."""
+    tt = SumTree(CAP, device="cpu")
+    ts, ref = _cpu_state(), _cpu_state()
+    ts.max_priority.fill_(2.5)
+    ref.max_priority.fill_(2.5)
+    idx = torch.tensor([1, 7, 7, 40])
+    tt.update(ts, idx, ts.max_priority.expand(4))
+    tt.update(ref, idx, torch.full((4,), 2.5))
+    for name in ("sum_tree", "min_tree", "max_priority"):
+        assert torch.equal(getattr(ts, name), getattr(ref, name)), name
+    assert ts.sum_tree[CAP + 7].item() == 2.5
