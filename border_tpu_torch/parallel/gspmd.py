@@ -65,7 +65,8 @@ from border_tpu_torch.replay.buffer import map_obs
 from border_tpu_torch.replay.frame_buffer import FrameReplayBuffer
 from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
-from border_tpu_torch.train.trainer import Trainer, _add_metrics, _slice_batch
+from border_tpu_torch.train.graphs import add_metrics
+from border_tpu_torch.train.trainer import Trainer, _slice_batch
 from border_tpu_torch.utils import collectives
 from border_tpu_torch.utils.device import DeviceLike
 
@@ -337,7 +338,7 @@ class GSPMDTrainer(Trainer):
             agent_state, metrics, td_err = self.agent.update(
                 agent_state, _slice_batch(batch, lo, lo + self.local_batch),
                 self._update_gen)
-            _add_metrics(sums, metrics)
+            add_metrics(sums, metrics)
             if td_err is not None and self.buffer.per is not None:
                 buf_state = self.buffer.update_priority(
                     buf_state, batch.ix_sample,

@@ -45,8 +45,7 @@ from border_tpu_torch.train.evaluator import Evaluator
 from border_tpu_torch.train.trainer import (
     Trainer,
     example_transition,
-    graphed_updates,
-    update_burst,
+    sequential_updates,
 )
 from border_tpu_torch.utils import collectives
 from border_tpu_torch.utils.device import DeviceLike
@@ -173,13 +172,8 @@ class ShardedTrainer(Trainer):
         """M updates in order, each on a local batch from the rank's shard
         (the JAX trainer's ``_update_scan_local``): replays of one captured
         update, its all-reduce inside, under NCCL; eagerly otherwise."""
-        m = self.updates_per_chunk
-        if not self.cuda_graphs:
-            return update_burst(self.agent, self.buffer, agent_state, buf_state,
-                                gen, self.local_batch, m)
-        sums = graphed_updates(self._graphs, self.agent, self.buffer,
-                               agent_state, buf_state, gen, self.local_batch, m)
-        return agent_state, buf_state, {k: v / m for k, v in sums.items()}
+        return sequential_updates(self, agent_state, buf_state, gen,
+                                  self.local_batch, self.updates_per_chunk)
 
     def _chunk(self, agent_state, vec_state, buf_state, gen: torch.Generator,
                do_update: bool, do_env: bool = True):

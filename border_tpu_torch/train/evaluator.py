@@ -17,27 +17,32 @@ ends, and they change nothing, because ``running`` masks every sum.  Eight
 keeps the syncs to an eighth of the steps while the extra steps stay a few
 percent of an episode of hundreds of steps.
 
-On a CUDA device one env step (act, step, the masked sums) is captured into
-a CUDA graph (:mod:`border_tpu_torch.train.graphs`) and replayed in those
-blocks of 8, or fewer where ``max_steps`` ends the rollout;
-``cuda_graphs=False`` runs the same operations eagerly.  The rollout writes
-fixed tensors that every evaluation reuses: the env state (each
+One env step (act, step, the masked sums) is the body of a loop
+(:mod:`border_tpu_torch.train.graphs`) run in those blocks of 8, or fewer
+where ``max_steps`` ends the rollout: on a CUDA device as replays of its
+captured CUDA graph, with ``cuda_graphs=False`` eagerly.  The rollout
+writes fixed tensors that every evaluation reuses: the env state (each
 evaluation's reset copied in), the sums, and the action and reset
-generators, re-seeded in place.  The graph is captured again only when the
-agent, its state or its policy module is another object than the last
-evaluation's.
+generators, re-seeded in place.  The loop is made (and its graph captured)
+again only when the agent, its state or its policy module is another
+object than the last evaluation's.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.core.env import Environment, VecEnv, index_seed
 from border_tpu_torch.record.record import Record
-from border_tpu_torch.train.graphs import LoopGraph, copy_into, resolve_cuda_graphs
+from border_tpu_torch.train.graphs import (
+    LoopGraph,
+    bound_loop,
+    copy_into,
+    resolve_cuda_graphs,
+)
 from border_tpu_torch.utils.device import DeviceLike
 
 _CHECK_EVERY = 8
@@ -63,14 +68,14 @@ class Evaluator:
                                                owner="Evaluator")
         dev = self.vec.device
         # the action and env generators, re-seeded in place every
-        # evaluation (the graph holds them; the eager path makes new resets)
+        # evaluation (a graph holds them)
         self._act_gen = torch.Generator(device=dev)
         self._env_gen = torch.Generator(device=dev)
         self._returns = torch.zeros((n_episodes,), dtype=torch.float32, device=dev)
         self._lengths = torch.zeros((n_episodes,), dtype=torch.int32, device=dev)
         self._running = torch.ones((n_episodes,), dtype=torch.bool, device=dev)
-        self._vec_state = None  # the graph's env state
-        self._graph: Optional[LoopGraph] = None
+        self._vec_state = None  # the loop's env state
+        self._graphs: Dict[str, LoopGraph] = {}
 
     def _step(self, agent: Agent, agent_state, vec_state):
         """One step of every instance: act, step, and the sums masked by
@@ -82,37 +87,23 @@ class Evaluator:
         self._running.logical_and_(~ts.done)
         return vec_state
 
-    def _steps(self, agent: Agent, agent_state, vec_state, n: int):
-        """``n`` steps: replays of the captured step, or eager ones."""
-        if not self.cuda_graphs:
-            for _ in range(n):
-                vec_state = self._step(agent, agent_state, vec_state)
-            return vec_state
-        objects = (agent, agent_state, agent.policy_params(agent_state))
-        if self._graph is None or not self._graph.bound_to(objects):
-            fixed = self._vec_state
-
-            def step():
-                copy_into(fixed, self._step(agent, agent_state, fixed))
-
-            self._graph = LoopGraph("evaluation step", step,
-                                    [self._act_gen, fixed.gen], objects)
-        self._graph.run(n)
-        return vec_state
-
     @torch.no_grad()
     def _rollout(self, agent: Agent, agent_state, eval_index: int):
         """(returns [n], lengths [n], count of instances still running)."""
-        if self.cuda_graphs:
-            vec_state = self.vec.reset_with_index(self.base_seed, eval_index,
-                                                  gen=self._env_gen)
-            if self._vec_state is None:
-                self._vec_state = vec_state
-            else:
-                copy_into(self._vec_state, vec_state)
-            vec_state = self._vec_state
+        vec_state = self.vec.reset_with_index(self.base_seed, eval_index,
+                                              gen=self._env_gen)
+        if self._vec_state is None:
+            self._vec_state = vec_state
         else:
-            vec_state = self.vec.reset_with_index(self.base_seed, eval_index)
+            copy_into(self._vec_state, vec_state)
+        fixed = self._vec_state
+
+        def step(loop):
+            copy_into(fixed, self._step(agent, agent_state, fixed))
+
+        loop = bound_loop(self._graphs, "evaluation step",
+                          (agent, agent_state, agent.policy_params(agent_state)),
+                          step, [self._act_gen, fixed.gen], self.cuda_graphs)
         self._act_gen.manual_seed(index_seed(self.base_seed, eval_index + 1))
         self._returns.zero_()
         self._lengths.zero_()
@@ -120,7 +111,7 @@ class Evaluator:
         done = 0
         while done < self.max_steps:
             n = min(_CHECK_EVERY, self.max_steps - done)
-            vec_state = self._steps(agent, agent_state, vec_state, n)
+            loop.run(n)
             done += n
             if done < self.max_steps and not bool(self._running.any()):
                 break

@@ -19,13 +19,18 @@ computes what the eager body computes, bit for bit, and the eager path on
 the card runs the same operations (the same capturable optimizer, the same
 device-count draws) for the tests to hold the two against each other.
 
-A :class:`LoopGraph` runs its body eagerly for its first ``warmup``
-iterations (on a side stream, as capture asks: lazy state such as the
-optimizer's moments and the kernels' libraries is made then), captures it
-on its next, and replays it from then on.  A capture that fails raises
-:class:`GraphCaptureError` naming the operator that broke it; nothing falls
-back to the eager body.  No collection of the cyclic garbage collector runs
-inside a capture (:func:`no_collection`): an object in a dead reference
+Each loop body of the trainers and evaluators is written once, as the
+step of a :class:`LoopGraph`, and its owner's resolved ``cuda_graphs``
+(:func:`resolve_cuda_graphs`) decides how the loop runs it.  Without
+graphs (the CPU, ``cuda_graphs=False``) ``run(n)`` calls the step ``n``
+times on the current stream.  With graphs it runs the step eagerly for its
+first ``WARMUP`` iterations (on a side stream, as capture asks: lazy state
+such as the optimizer's moments and the kernels' libraries is made then),
+captures it on its next, and replays it from then on.  A capture that
+fails raises :class:`GraphCaptureError` naming the operator that broke it;
+nothing falls back to the eager body.  No collection of the cyclic
+garbage collector runs inside a capture (:func:`no_collection`): an
+object in a dead reference
 cycle can hold a captured graph (a trainer's or an evaluator's graphs hold
 their owner through the body), and destroying a graph while another
 stream is capturing invalidates that capture, so the collector runs just
@@ -137,6 +142,14 @@ def copy_into(dst: Any, src: Any) -> None:
         torch._foreach_copy_(dsts, srcs)
 
 
+def add_metrics(sums: Dict[str, Any], metrics: Dict[str, Any]) -> None:
+    """``metrics`` added into ``sums`` as new values (the first of a key
+    taken as it is): eager sums, which may hold host values (ε on the
+    CPU)."""
+    for k, v in metrics.items():
+        sums[k] = sums[k] + v if k in sums else v
+
+
 def add_metrics_(sums: Dict[str, torch.Tensor], metrics: Dict[str, Any]) -> None:
     """``metrics`` added into the device sums ``sums`` in place (made as
     zeros at the first call).  A metric that is not a tensor would be
@@ -218,27 +231,29 @@ def _where(exc: BaseException) -> str:
 
 
 class LoopGraph:
-    """``step()`` run ``n`` times per :meth:`run`: eagerly for its first
-    ``warmup`` iterations over all calls, then captured once and replayed.
+    """``step(loop)`` run ``n`` times per :meth:`run`: without graphs
+    (``cuda_graphs`` False) on the current stream each time; with graphs
+    eagerly for its first ``WARMUP`` iterations over all calls, then
+    captured once and replayed.
 
-    ``step`` takes no arguments and returns nothing: it updates tensors in
-    place that keep their addresses between iterations.  ``generators``:
-    every ``torch.Generator`` it draws from (each replay then draws anew).
+    ``step`` takes the loop and returns nothing: it updates tensors in
+    place that keep their addresses between iterations, and adds its
+    metrics with :meth:`add_metrics`.  ``generators``: every
+    ``torch.Generator`` it draws from (each replay then draws anew).
     ``objects``: what the body was built for; :meth:`bound_to` tells a
-    caller whether it may replay this graph for other objects.
-    ``updates``: the agent updates one iteration of the body makes (kept
-    beside the graph's kernel nodes in :data:`nodes`)."""
+    caller whether it may run this loop for other objects.  ``updates``:
+    the agent updates one iteration of the body makes (kept beside the
+    graph's kernel nodes in :data:`nodes`)."""
 
-    def __init__(self, name: str, step: Callable[[], None],
+    def __init__(self, name: str, step: Callable[["LoopGraph"], None],
                  generators: Sequence[torch.Generator],
-                 objects: Sequence[Any] = (), warmup: int = WARMUP,
-                 updates: int = 0):
+                 objects: Sequence[Any], cuda_graphs: bool, updates: int = 0):
         self.name = name
         self.updates = updates
         self.step = step
         self.generators = list(generators)
         self.objects = list(objects)
-        self.warmup = warmup
+        self.cuda_graphs = cuda_graphs
         self.eager_done = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.stream: Optional[torch.cuda.Stream] = None
@@ -248,14 +263,20 @@ class LoopGraph:
         # (tracing level ``detail`` at capture time), which every replay
         # records: :mod:`border_tpu_torch.utils.profiling`
         self.edges: List[tuple] = []
-        # the caller's fixed tensors the body writes: its device sums and,
-        # for a prefetching body, the batch it carries between iterations
-        self.sums: Any = None
+        # the body's metric sums over a run, and for a prefetching body the
+        # batch it carries between iterations (fixed tensors under graphs)
+        self.sums: Dict[str, Any] = {}
         self.held: Any = None
 
     def bound_to(self, objects: Sequence[Any]) -> bool:
         return len(objects) == len(self.objects) and all(
             a is b for a, b in zip(objects, self.objects))
+
+    def add_metrics(self, metrics: Dict[str, Any]) -> None:
+        """The body's ``metrics`` added into :attr:`sums`: in place into
+        device sums under graphs (:func:`add_metrics_`: a host value
+        raises), else as they come (:func:`add_metrics`)."""
+        (add_metrics_ if self.cuda_graphs else add_metrics)(self.sums, metrics)
 
     def _side_stream(self) -> torch.cuda.Stream:
         if self.stream is None:
@@ -263,18 +284,27 @@ class LoopGraph:
         return self.stream
 
     def run(self, n: int) -> None:
+        """``n`` iterations of the body, :attr:`sums` zeroed first."""
         if n <= 0:
             return
+        if not self.cuda_graphs:
+            # new sums: an eager sum may be the body's own metric tensor
+            self.sums = {}
+            for _ in range(n):
+                self.step(self)
+            return
+        for v in self.sums.values():
+            v.zero_()
         if self.graph is None:
             profiling.graph_ran(built=True)
-            w = min(n, self.warmup - self.eager_done)
+            w = min(n, WARMUP - self.eager_done)
             if w > 0:
                 with profiling.span("graph.warmup", tag=self.name):
                     s = self._side_stream()
                     s.wait_stream(torch.cuda.current_stream())
                     with torch.cuda.stream(s):
                         for _ in range(w):
-                            self.step()
+                            self.step(self)
                     torch.cuda.current_stream().wait_stream(s)
                 self.eager_done += w
                 counts[self.name, "warmups"] += w
@@ -310,7 +340,7 @@ class LoopGraph:
         try:
             with no_collection(), torch.cuda.graph(graph, stream=self._side_stream()):
                 with last:
-                    self.step()
+                    self.step(self)
         except GraphCaptureError:
             raise
         except Exception as e:  # noqa: BLE001 — re-raised with the operator
@@ -333,3 +363,17 @@ class LoopGraph:
         nodes[self.name] = (kernel_nodes(graph), self.updates)
         graph.instantiate()
         self.graph = graph
+
+
+def bound_loop(graphs: Dict[str, LoopGraph], name: str, objects: Sequence[Any],
+               step: Callable[[LoopGraph], None],
+               generators: Sequence[torch.Generator], cuda_graphs: bool,
+               updates: int = 0) -> LoopGraph:
+    """``graphs[name]`` while it is bound to ``objects``; else a new
+    :class:`LoopGraph` of ``step``, kept there (an owner's loops, one a
+    body, each made again only for other objects)."""
+    loop = graphs.get(name)
+    if loop is None or not loop.bound_to(objects):
+        loop = graphs[name] = LoopGraph(name, step, generators, objects,
+                                        cuda_graphs, updates)
+    return loop

@@ -44,7 +44,7 @@ host buffers and non-blocking copies), and the actions and the counters
 come back in non-blocking copies behind one event, the iteration's one
 sync, after which the host mirrors of the counters (the update count, the
 ring's fill), which a replay does not advance, are set from what came
-back.  ``cuda_graphs=False`` runs the same operations eagerly.
+back.  ``cuda_graphs=False`` runs the same bodies eagerly.
 """
 
 from __future__ import annotations
@@ -58,22 +58,24 @@ import torch
 from border_tpu_torch.core.agent import Agent
 from border_tpu_torch.core.env import Timestep, index_seed
 from border_tpu_torch.envs.native import AsyncEnvFeeder, NativeVecEnv
-from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.record.record import Record
 from border_tpu_torch.record.recorder import NullRecorder, Recorder
 from border_tpu_torch.replay.frame_buffer import FrameReplayBuffer
 from border_tpu_torch.train.config import TrainerConfig
-from border_tpu_torch.train.graphs import LoopGraph, resolve_cuda_graphs
+from border_tpu_torch.train.graphs import (
+    LoopGraph,
+    bound_loop,
+    resolve_cuda_graphs,
+)
 from border_tpu_torch.train.trainer import (
     Trainer,
     TrainResult,
     _reconcile_next_cadence,
     _same_states,
     example_transition,
-    graphed_updates,
     metrics_to_host,
     param_stats_record,
-    update_burst,
+    sequential_updates,
 )
 from border_tpu_torch.utils import profiling
 from border_tpu_torch.utils.counters import counts_of, set_mirrors
@@ -156,12 +158,13 @@ class HostEvaluator:
     evaluation runs on the device of the agent's policy; the actions of
     evaluation ``i`` draw from a generator seeded by
     ``index_seed(base_seed, i + 1)``, as :class:`Evaluator`'s: one
-    generator a device, re-seeded in place.  On a CUDA device
-    (``cuda_graphs``: None or True) each step's ``select_action_eval`` is
-    a replay of one captured CUDA graph, its observation uploaded into a
-    fixed tensor and its actions read back through a pinned buffer
-    (:class:`HostIO`); ``cuda_graphs=False`` runs it eagerly, and True
-    where the policy is on the CPU raises ``ConfigError``."""
+    generator a device, re-seeded in place.  Each step's
+    ``select_action_eval`` reads its observation from a fixed tensor and
+    writes its actions into another, read back through a pinned buffer
+    (:class:`HostIO`).  On a CUDA device (``cuda_graphs``: None or True)
+    that select is a replay of one captured CUDA graph;
+    ``cuda_graphs=False`` runs it eagerly, and True where the policy is on
+    the CPU raises ``ConfigError``."""
 
     def __init__(self, env: Union[str, Callable[[int, int], Any]],
                  n_episodes: int = 5, max_steps: int = 7_000,
@@ -174,19 +177,20 @@ class HostEvaluator:
             name = env
             env = lambda n, seed: NativeVecEnv(  # noqa: E731
                 name, n, seed=seed, train=False)
-        if cuda_graphs and not torch.cuda.is_available():
-            raise ConfigError("cuda_graphs=True needs a CUDA device, and none "
-                              "is available")
+        # checked here against the machine, resolved at each evaluation
+        # against the policy's device
+        resolve_cuda_graphs(cuda_graphs, torch.device(
+            "cuda" if torch.cuda.is_available() else "cpu"), owner="HostEvaluator")
         self.env_factory = env
         self.n_episodes = n_episodes
         self.max_steps = max_steps
         self.base_seed = base_seed
         self.cuda_graphs = cuda_graphs
         # on the policy's device: the fixed tensors, the action generator
-        # and the graph of the select, made anew when the device changes
+        # and the loop of the select, made anew when the device changes
         self._io: Optional[HostIO] = None
         self._gen: Optional[torch.Generator] = None
-        self._graph: Optional[LoopGraph] = None
+        self._graphs: Dict[str, LoopGraph] = {}
 
     def _act(self, agent: Agent, agent_state, obs: np.ndarray,
              graphs: bool) -> np.ndarray:
@@ -194,21 +198,19 @@ class HostEvaluator:
         io, gen = self._io, self._gen
         obs_t = io.upload("obs", obs)
 
-        def select():
+        def select(loop):
             act = agent.select_action_eval(agent_state, obs_t, gen)
             if "act" not in io.dev:
                 io.dev["act"] = act
             else:
                 io.dev["act"].copy_(act)
 
-        if not graphs or "act" not in io.dev:
-            select()  # the first step also makes the fixed action tensor
+        if "act" not in io.dev:
+            select(None)  # the first step makes the fixed action tensor
         else:
-            objects = (agent, agent_state, agent.policy_params(agent_state))
-            if self._graph is None or not self._graph.bound_to(objects):
-                self._graph = LoopGraph("host evaluation select", select,
-                                        [gen], objects)
-            self._graph.run(1)
+            bound_loop(self._graphs, "host evaluation select",
+                       (agent, agent_state, agent.policy_params(agent_state)),
+                       select, [gen], graphs).run(1)
         return io.download(io.dev["act"])[0]
 
     @torch.no_grad()
@@ -217,7 +219,7 @@ class HostEvaluator:
         dev = next(agent.policy_params(agent_state).parameters()).device
         graphs = resolve_cuda_graphs(self.cuda_graphs, dev, owner="HostEvaluator")
         if self._io is None or self._io.device != dev:
-            self._io, self._gen, self._graph = HostIO(dev), None, None
+            self._io, self._gen, self._graphs = HostIO(dev), None, {}
         self._gen = as_generator(index_seed(self.base_seed, eval_index + 1),
                                  dev, into=self._gen)
         env = self.env_factory(self.n_episodes, self.base_seed + eval_index)
@@ -359,20 +361,15 @@ class HostEnvTrainer:
 
     def _device_step_run(self, agent_state, buf_state, io: HostIO,
                          act: torch.Tensor, gen: torch.Generator) -> None:
-        """:meth:`_device_step`, eagerly or as a replay of its capture."""
-        if not self.cuda_graphs:
-            self._device_step(agent_state, buf_state, io, act, gen)
-            return
-        objects = (agent_state, buf_state, gen, io, act)
-        loop = self._graphs.get("device step")
-        if loop is None or not loop.bound_to(objects):
-            def step():
-                st, bs = self._device_step(agent_state, buf_state, io, act, gen)
-                _same_states(st, agent_state, bs, buf_state)
+        """:meth:`_device_step` once, by its loop: a replay of its capture
+        on the card."""
+        def step(loop):
+            st, bs = self._device_step(agent_state, buf_state, io, act, gen)
+            _same_states(st, agent_state, bs, buf_state)
 
-            loop = self._graphs["device step"] = LoopGraph(
-                "host device step", step, [gen], objects)
-        loop.run(1)
+        bound_loop(self._graphs, "device step",
+                   (agent_state, buf_state, gen, io, act), step, [gen],
+                   self.cuda_graphs).run(1)
 
     @staticmethod
     def _advance_stack(stack: torch.Tensor, frame: torch.Tensor,
@@ -384,16 +381,11 @@ class HostEnvTrainer:
         return torch.where(done[:, None, None, None], reset, rolled)
 
     def _update_burst(self, agent_state, buf_state, gen: torch.Generator, m: int):
-        """``m`` updates: replays of one captured update on the card
-        (:func:`graphed_updates`), else eagerly.  Returns the states and the
-        metrics' means on the device."""
-        if not self.cuda_graphs:
-            return update_burst(self.agent, self.buffer, agent_state, buf_state,
-                                gen, self.config.batch_size, m)
-        sums = graphed_updates(self._graphs, self.agent, self.buffer,
-                               agent_state, buf_state, gen,
-                               self.config.batch_size, m)
-        return agent_state, buf_state, {k: v / m for k, v in sums.items()}
+        """``m`` updates (:func:`sequential_updates`: replays of one
+        captured update on the card).  Returns the states and the metrics'
+        means on the device."""
+        return sequential_updates(self, agent_state, buf_state, gen,
+                                  self.config.batch_size, m)
 
     # -- orchestration ----------------------------------------------------------
     def train(self, seed: Optional[int] = None, resume_from=None) -> TrainResult:

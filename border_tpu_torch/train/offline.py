@@ -5,17 +5,18 @@
 loop's cadences with every iteration a gradient step on a batch drawn from
 the buffer.  A chunk is ``updates_per_chunk`` updates, each a sample, an
 update and, when the agent returns TD errors, a priority update; the
-chunk's metrics are summed on the device and read in its one device→host
-sync.  On a CUDA device the update is captured into a CUDA graph and the
-chunk replays it (:mod:`border_tpu_torch.train.graphs`, as the Trainer's
-update loop; ``cuda_graphs=False`` runs it eagerly).  Between chunks: record
+chunk's metrics are averaged on the device and read in its one
+device→host sync.  The chunk is the Trainer's sequential update loop
+(:func:`~border_tpu_torch.train.trainer.sequential_updates`): on a CUDA
+device replays of one captured update, with ``cuda_graphs=False`` the
+same body run eagerly.  Between chunks: record
 flushes, evaluation with best-model saves, ``eval_callback``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -27,9 +28,8 @@ from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
 from border_tpu_torch.train.trainer import (
     TrainResult,
-    graphed_updates,
     resolve_cuda_graphs,
-    update_step,
+    sequential_updates,
 )
 from border_tpu_torch.utils.counters import sync_counters
 
@@ -63,21 +63,14 @@ class OfflineTrainer:
         self._graphs = {}
 
     def _chunk(self, agent_state, buf_state, gen: torch.Generator):
-        """``updates_per_chunk`` updates; the metrics' sums, on the device."""
-        if self.cuda_graphs:
-            sums = graphed_updates(
-                self._graphs, self.agent, self.buffer, agent_state, buf_state,
-                gen, self.config.batch_size, self.updates_per_chunk)
-            sync_counters(agent_state, buf_state)
-            return agent_state, buf_state, sums
-        sums: Dict[str, Any] = {}
-        for _ in range(self.updates_per_chunk):
-            agent_state, buf_state, metrics = update_step(
-                self.agent, self.buffer, agent_state, buf_state, gen,
-                self.config.batch_size)
-            for k, v in metrics.items():
-                sums[k] = sums[k] + v if k in sums else v
-        return agent_state, buf_state, sums
+        """``updates_per_chunk`` updates; the metrics' means, on the
+        device.  The host mirrors of the counters follow (replays do not
+        advance them)."""
+        agent_state, buf_state, means = sequential_updates(
+            self, agent_state, buf_state, gen, self.config.batch_size,
+            self.updates_per_chunk)
+        sync_counters(agent_state, buf_state)
+        return agent_state, buf_state, means
 
     def train(self, agent_state: Any, buffer_state: Any,
               seed: Optional[int] = None) -> TrainResult:
@@ -96,16 +89,15 @@ class OfflineTrainer:
 
         while opt_steps < c.max_opts:
             t_chunk = time.perf_counter()
-            agent_state, buffer_state, sums = self._chunk(
+            agent_state, buffer_state, means = self._chunk(
                 agent_state, buffer_state, gen)
             # the chunk's one device→host sync: every metric at once
-            keys = list(sums)
-            means = (torch.stack([sums[k].float() for k in keys])
-                     / self.updates_per_chunk).tolist()
+            keys = list(means)
+            vals = torch.stack([means[k].float() for k in keys]).tolist()
             dt = time.perf_counter() - t_chunk
             opt_steps = agent_state.n_opts
 
-            rec = Record(dict(zip(keys, means)))
+            rec = Record(dict(zip(keys, vals)))
             rec["opt_steps_per_sec"] = self.updates_per_chunk / dt
             self.recorder.store(rec)
             if opt_steps >= next_flush:

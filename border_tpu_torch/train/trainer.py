@@ -7,15 +7,15 @@ Each chunk runs
 
 with ``M = K·num_envs/opt_interval · n_updates_per_opt``, the reference's
 update:sample ratio.  The JAX trainer compiles a chunk into one XLA program
-of two ``lax.scan``s.  Here, on a CUDA device, one env step and one update
-are each captured into a CUDA graph and replayed K and M times
-(:mod:`border_tpu_torch.train.graphs`); ``cuda_graphs=False`` runs the same
-operations eagerly, as Python loops that queue on the card without waiting
-for it, and the CPU path is always eager.  The counters (env steps, write
-cursor, draw range, update count) advance on the device on the card and as
-host ints on the CPU, and the chunk's metrics are summed on the device, so
-a chunk costs one device→host sync, at its end: on the card it also brings
-the host mirrors of the counters up to date.  Each chunk is traced
+of two ``lax.scan``s.  Here one env step and one update are each written
+once as a loop body, which a :class:`~border_tpu_torch.train.graphs.LoopGraph`
+runs K and M times: on a CUDA device as replays of its captured CUDA graph;
+with ``cuda_graphs=False``, and always on the CPU, as a Python loop over the
+body (which on the card queues without waiting for it).  The counters (env
+steps, write cursor, draw range, update count) advance on the device on the
+card and as host ints on the CPU, and the chunk's metrics are summed on the
+device, so a chunk costs one device→host sync, at its end: on the card it
+also brings the host mirrors of the counters up to date.  Each chunk is traced
 (:mod:`border_tpu_torch.utils.profiling`): the span ``chunk`` with its env
 and update phases, timed on the device, and the host's ``sync_counters``
 and ``metrics_to_host``.
@@ -45,7 +45,7 @@ from border_tpu_torch.train.config import TrainerConfig
 from border_tpu_torch.train.evaluator import Evaluator
 from border_tpu_torch.train.graphs import (
     LoopGraph,
-    add_metrics_,
+    bound_loop,
     copy_into,
     resolve_cuda_graphs,
 )
@@ -78,11 +78,6 @@ def _slice_batch(batch, lo: int, hi: int):
     })
 
 
-def _add_metrics(sums: Dict[str, Any], metrics: Dict[str, Any]) -> None:
-    for k, v in metrics.items():
-        sums[k] = sums[k] + v if k in sums else v
-
-
 def update_step(agent: Agent, buffer, agent_state, buf_state,
                 gen: torch.Generator, batch_size: int):
     """One update of the sequential loop: sample, update, priority
@@ -98,53 +93,32 @@ def update_step(agent: Agent, buffer, agent_state, buf_state,
     return agent_state, buf_state, metrics
 
 
-def update_burst(agent: Agent, buffer, agent_state, buf_state,
-                 gen: torch.Generator, batch_size: int, m: int):
+def sequential_updates(owner, agent_state, buf_state, gen: torch.Generator,
+                       batch_size: int, m: int):
     """``m`` updates in order, each on its own sample, with priority
-    feedback: the JAX trainers' sequential update loop.  Returns the states
-    and the metrics' means over the burst, tensors still on the device."""
-    sums: Dict[str, Any] = {}
-    for _ in range(m):
-        agent_state, buf_state, metrics = update_step(
-            agent, buffer, agent_state, buf_state, gen, batch_size)
-        _add_metrics(sums, metrics)
-    return agent_state, buf_state, {k: v / m for k, v in sums.items()}
+    feedback: the JAX trainers' sequential update loop, one update a run
+    of ``owner``'s loop ``"update"`` (its ``agent``, ``buffer``,
+    ``_graphs`` and ``cuda_graphs``).  Returns the states and the metrics'
+    means over the burst, tensors still on the device."""
+    def step(loop):
+        st, bs, metrics = update_step(owner.agent, owner.buffer, agent_state,
+                                      buf_state, gen, batch_size)
+        _same_states(st, agent_state, bs, buf_state)
+        loop.add_metrics(metrics)
 
-
-def graphed_updates(graphs: Dict[str, LoopGraph], agent: Agent, buffer,
-                    agent_state, buf_state, gen: torch.Generator,
-                    batch_size: int, m: int) -> Dict[str, torch.Tensor]:
-    """:func:`update_burst`'s ``m`` updates as replays of one captured
-    update (``graphs["update"]``, made here or reused while the same states
-    and generator come back).  Returns the metrics' sums on the device."""
-    loop = graphs.get("update")
-    objects = (agent_state, buf_state, gen)
-    if loop is None or not loop.bound_to(objects):
-        sums: Dict[str, torch.Tensor] = {}
-
-        def step():
-            st, bs, metrics = update_step(agent, buffer, agent_state,
-                                          buf_state, gen, batch_size)
-            _same_states(st, agent_state, bs, buf_state)
-            add_metrics_(sums, metrics)
-
-        loop = graphs["update"] = LoopGraph("update", step, [gen], objects,
-                                            updates=1)
-        loop.sums = sums
-    for v in loop.sums.values():
-        v.zero_()
+    loop = bound_loop(owner._graphs, "update", (agent_state, buf_state, gen),
+                      step, [gen], owner.cuda_graphs, updates=1)
     loop.run(m)
-    # copies: the next chunk's replays write the sums again
-    return {k: v.clone() for k, v in loop.sums.items()}
+    return agent_state, buf_state, {k: v / m for k, v in loop.sums.items()}
 
 
 def _same_states(agent_state, want_agent, buf_state, want_buf) -> None:
-    """A graphed body's states must be updated in place: a step that
-    returns new state objects would leave the graph writing the old."""
+    """A loop body's states must be updated in place: a step that returns
+    new state objects would leave a graph writing the old."""
     if agent_state is not want_agent or buf_state is not want_buf:
         raise ConfigError(
-            "a graphed loop body returned new state objects; the agent and "
-            "the buffer must update their states in place")
+            "a loop body returned new state objects; the agent and the "
+            "buffer must update their states in place")
 
 
 def metrics_to_host(metrics: Dict[str, Any], *scalars: torch.Tensor):
@@ -328,9 +302,9 @@ class Trainer:
     # chunk
     # ------------------------------------------------------------------
     def _env_step(self, agent_state, vec_state, buf_state,
-                  gen: torch.Generator, explore: bool, ep_ret, ep_cnt):
+                  gen: torch.Generator, explore: bool, loop: LoopGraph):
         """One env step: act → step → push, the finished episodes' returns
-        and count added into ``ep_ret``/``ep_cnt`` in place."""
+        and count added into ``loop``'s sums ``ep_ret`` and ``ep_cnt``."""
         if explore:
             action = self.agent.select_action(agent_state, vec_state.obs, gen)
         else:
@@ -343,49 +317,28 @@ class Trainer:
         )
         agent_state = self.agent.on_env_step(agent_state, self.config.num_envs)
         done_f = ts.done.float()
-        ep_ret += (done_f * vec_state.last_return).sum()
-        ep_cnt += done_f.sum()
+        loop.add_metrics({"ep_ret": (done_f * vec_state.last_return).sum()})
+        loop.add_metrics({"ep_cnt": done_f.sum()})
         return agent_state, vec_state, buf_state
 
     def _env_scan(self, agent_state, vec_state, buf_state,
                   gen: torch.Generator, explore: bool):
-        """K env steps: act → step → push.  Returns the states and the
+        """K env steps: act → step → push, each next env state copied into
+        ``vec_state``'s tensors.  Returns the same state objects and the
         device sums of the finished episodes' returns and of their count."""
-        if self.cuda_graphs:
-            return self._env_scan_graphed(agent_state, vec_state, buf_state,
-                                          gen, explore)
-        ep_ret = torch.zeros((), device=self.device)
-        ep_cnt = torch.zeros((), device=self.device)
-        for _ in range(self.config.steps_per_chunk):
-            agent_state, vec_state, buf_state = self._env_step(
-                agent_state, vec_state, buf_state, gen, explore, ep_ret, ep_cnt)
-        return agent_state, vec_state, buf_state, ep_ret, ep_cnt
+        def step(loop):
+            st, new_vec, bs = self._env_step(agent_state, vec_state, buf_state,
+                                             gen, explore, loop)
+            _same_states(st, agent_state, bs, buf_state)
+            copy_into(vec_state, new_vec)
 
-    def _env_scan_graphed(self, agent_state, vec_state, buf_state,
-                          gen: torch.Generator, explore: bool):
-        """:meth:`_env_scan` as K replays of one captured env step, whose
-        next env state is copied into ``vec_state``'s tensors.  Returns the
-        same state objects."""
-        name = f"env step ({'explore' if explore else 'greedy'})"
-        objects = (agent_state, vec_state, buf_state, gen)
-        loop = self._graphs.get(name)
-        if loop is None or not loop.bound_to(objects):
-            sums = (torch.zeros((), device=self.device),
-                    torch.zeros((), device=self.device))
-
-            def step():
-                st, new_vec, bs = self._env_step(agent_state, vec_state,
-                                                 buf_state, gen, explore, *sums)
-                _same_states(st, agent_state, bs, buf_state)
-                copy_into(vec_state, new_vec)
-
-            loop = self._graphs[name] = LoopGraph(
-                name, step, [gen, vec_state.gen], objects)
-            loop.sums = sums
-        for v in loop.sums:
-            v.zero_()
+        loop = bound_loop(self._graphs,
+                          f"env step ({'explore' if explore else 'greedy'})",
+                          (agent_state, vec_state, buf_state, gen), step,
+                          [gen, vec_state.gen], self.cuda_graphs)
         loop.run(self.config.steps_per_chunk)
-        ep_ret, ep_cnt = (v.clone() for v in loop.sums)
+        # copies: the next chunk's replays write the sums again
+        ep_ret, ep_cnt = (loop.sums[k].clone() for k in ("ep_ret", "ep_cnt"))
         return agent_state, vec_state, buf_state, ep_ret, ep_cnt
 
     def _update_scan(self, agent_state, buf_state, gen: torch.Generator):
@@ -394,94 +347,51 @@ class Trainer:
 
         Uniform replay has two more orders, as in the JAX trainer:
         ``updates_per_sample_batch`` = u > 1 draws one sample of ``B·u``
-        and cuts it into u sub-batches; ``prefetch_sample`` starts the
-        sample for update i+1 before update i (M+1 samples a chunk, the
-        last unused).  On one CUDA stream prefetching only reorders the
-        launches; it is kept so the draws come in the reference's order.
-        PER keeps the sequential order: its draw depends on the priorities
-        the previous update wrote."""
+        and cuts it into u sub-batches, u updates a loop iteration;
+        ``prefetch_sample`` starts the sample for update i+1 before update
+        i (M+1 samples a chunk, the last unused): the chunk's first sample
+        is drawn before the loop, and each iteration's is held in fixed
+        tensors for the next.  On one CUDA stream prefetching only reorders
+        the launches; it is kept so the draws come in the reference's
+        order.  PER keeps the sequential order: its draw depends on the
+        priorities the previous update wrote."""
         c = self.config
         B, M = c.batch_size, self.updates_per_chunk
         uniform = self.buffer.per is None
         ups = c.updates_per_sample_batch if uniform else 1
-        if self.cuda_graphs:
-            return self._update_scan_graphed(agent_state, buf_state, gen, ups,
-                                             uniform and c.prefetch_sample)
-        if ups == 1 and not (uniform and c.prefetch_sample):
-            return update_burst(self.agent, self.buffer, agent_state,
-                                buf_state, gen, B, M)
-        sums: Dict[str, Any] = {}
+        prefetch = ups == 1 and uniform and c.prefetch_sample
+        if ups == 1 and not prefetch:
+            return sequential_updates(self, agent_state, buf_state, gen, B, M)
 
         def sample(n):
             return self.buffer.sample(buf_state, gen, n,
                                       n_opts=count(agent_state, "n_opts"))
 
-        def update(batch):
-            state, metrics, _ = self.agent.update(agent_state, batch, gen)
-            _add_metrics(sums, metrics)
-            return state
+        def update(loop, batch):
+            st, metrics, _ = self.agent.update(agent_state, batch, gen)
+            _same_states(st, agent_state, buf_state, buf_state)
+            loop.add_metrics(metrics)
 
-        if ups > 1:
-            for _ in range(M // ups):
+        def step(loop):
+            if prefetch:
+                nxt = sample(B)
+                update(loop, loop.held)
+                copy_into(loop.held, nxt)
+            else:
                 big = sample(B * ups)
                 for i in range(ups):
-                    agent_state = update(_slice_batch(big, i * B, (i + 1) * B))
-        else:
-            batch = sample(B)
-            for _ in range(M):
-                next_batch = sample(B)  # for iteration i+1
-                agent_state = update(batch)
-                batch = next_batch
-        means = {k: v / M for k, v in sums.items()}
-        return agent_state, buf_state, means
+                    update(loop, _slice_batch(big, i * B, (i + 1) * B))
 
-    def _update_scan_graphed(self, agent_state, buf_state,
-                             gen: torch.Generator, ups: int, prefetch: bool):
-        """:meth:`_update_scan` as replays of one captured body: an update
-        (the sequential order), a sample of ``B·ups`` and its ``ups``
-        updates, or a prefetched update (the batch the previous replay drew
-        is read from fixed tensors, which the chunk's first sample fills).
-        The same draws in the same order as the eager loops."""
-        B, M = self.config.batch_size, self.updates_per_chunk
-        if ups == 1 and not prefetch:
-            sums = graphed_updates(self._graphs, self.agent, self.buffer,
-                                   agent_state, buf_state, gen, B, M)
-            return agent_state, buf_state, {k: v / M for k, v in sums.items()}
-        agent, objects = self.agent, (agent_state, buf_state, gen)
-
-        def sample(n):
-            return self.buffer.sample(buf_state, gen, n,
-                                      n_opts=count(agent_state, "n_opts"))
-
-        def update(batch, sums):
-            st, metrics, _ = agent.update(agent_state, batch, gen)
-            _same_states(st, agent_state, buf_state, buf_state)
-            add_metrics_(sums, metrics)
-
-        name = "prefetched update" if ups == 1 else "sample-batch updates"
-        loop = self._graphs.get(name)
-        head = sample(B) if ups == 1 else None
-        if loop is None or not loop.bound_to(objects):
-            sums: Dict[str, torch.Tensor] = {}
-            held = head  # the batch the next replay updates on
-
-            def step():
-                if ups == 1:
-                    nxt = sample(B)
-                    update(held, sums)
-                    copy_into(held, nxt)
-                else:
-                    big = sample(B * ups)
-                    for i in range(ups):
-                        update(_slice_batch(big, i * B, (i + 1) * B), sums)
-
-            loop = self._graphs[name] = LoopGraph(name, step, [gen], objects,
-                                                  updates=ups)
-            loop.sums, loop.held = sums, held
-        elif ups == 1:
-            copy_into(loop.held, head)
-        for v in loop.sums.values():
-            v.zero_()
+        loop = bound_loop(self._graphs, "prefetched update" if prefetch
+                          else "sample-batch updates",
+                          (agent_state, buf_state, gen), step, [gen],
+                          self.cuda_graphs, updates=ups)
+        if prefetch:  # the chunk's first sample, the first update's batch
+            head = sample(B)
+            if loop.held is None:
+                loop.held = head
+            else:
+                copy_into(loop.held, head)
         loop.run(M // ups)
         return agent_state, buf_state, {k: v / M for k, v in loop.sums.items()}
 

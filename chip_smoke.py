@@ -558,8 +558,7 @@ def main(only=None) -> None:
 def training_phases(torch, dev, timed) -> int:
     """Phases 6-14, each through ``timed(label, fn, *args, skipped=...)``
     (main's, which runs a phase or skips it, returning ``skipped``).
-    Returns the gather launches.  ``tools/evaluator_capture_loop.py``
-    repeats them."""
+    Returns the gather launches."""
     # -- 6. the uniform path --------------------------------------------------
     launches, tr, r = timed("6 uniform", main_path, torch, dev,
                             skipped=(0, None, None))

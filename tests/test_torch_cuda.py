@@ -1158,8 +1158,7 @@ def test_a_graph_the_collector_frees_inside_a_capture(guarded, monkeypatch):
     first = Evaluator(make("Pendulum-v1"), 4, 16)
     st = agent.init(0, first.vec.observation_space, first.vec.action_space)
     first.evaluate(agent, st)  # captures and replays its step's graph
-    dead.append(first._graph.graph)
-    first._graph = None
+    dead.append(first._graphs.pop("evaluation step").graph)
     ev = Evaluator(make("Pendulum-v1"), 4, 16)
     threshold = gc.get_threshold()
     gc.set_threshold(1)  # a collection at the next allocations
@@ -1316,7 +1315,7 @@ def test_graphed_evaluator_equals_eager_bitwise(env_id, max_steps):
     fresh = Evaluator(make(env_id, **({"train": False} if pong else {})),
                       n_episodes=6, max_steps=max_steps)
     assert _eval_records(fresh, agent, st, (1,)) == [got[True][1]]
-    assert evs[True]._graph.graph is not None
+    assert evs[True]._graphs["evaluation step"].graph is not None
     if pong:
         assert got[True][0]["Episodes truncated"] == 6
     else:
@@ -1341,7 +1340,7 @@ def test_graphed_host_evaluator_equals_eager_bitwise():
            for g in (True, False)}
     got = {g: _eval_records(ev, agent, st, (0, 1, 0)) for g, ev in evs.items()}
     assert got[True] == got[False] and got[True][0] == got[True][2]
-    assert evs[True]._graph.graph is not None
+    assert evs[True]._graphs["host evaluation select"].graph is not None
 
 
 @pytest.mark.cuda

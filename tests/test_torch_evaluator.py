@@ -88,6 +88,9 @@ class JaxPolicy:
 
 
 class Policy:
+    def policy_params(self, state):
+        return None
+
     def select_action_eval(self, state, obs, gen=None):
         return (obs[:, 0].to(torch.int32) * 7) % 3
 
@@ -109,13 +112,13 @@ def _evaluators(horizons, max_steps):
     env = Countdown()
     tev = Evaluator(env, n_episodes=n, max_steps=max_steps, device="cpu")
 
-    def reset(base_seed, index):
+    def reset(base_seed, index, gen=None):
         ti = torch.zeros(n, dtype=torch.int32)
         return VecEnvState(
-            env_state=CountState(t=ti, horizon=torch.from_numpy(h)),
+            env_state=CountState(t=ti, horizon=torch.tensor(h)),
             obs=torch.zeros((n, 1)), episode_return=torch.zeros(n),
             episode_length=ti.clone(), last_return=torch.zeros(n),
-            last_length=ti.clone(), gen=torch.Generator().manual_seed(0))
+            last_length=ti.clone(), gen=(gen or torch.Generator()).manual_seed(0))
 
     tev.vec.reset_with_index = reset
     return jev, tev, env

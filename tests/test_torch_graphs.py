@@ -14,6 +14,7 @@ or of the value (the cosine, whose ``cos`` comes from torch on one side and
 numpy on the other).
 """
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -49,10 +50,12 @@ from border_tpu_torch.train import (
     Trainer,
     TrainerConfig,
 )
+from border_tpu_torch.train import graphs
 from border_tpu_torch.train.graphs import (
     GraphCaptureError,
     _leaves,
     add_metrics_,
+    bound_loop,
     copy_into,
     no_collection,
 )
@@ -216,6 +219,83 @@ def test_add_metrics_sums_in_place_and_refuses_host_values():
     assert sums["loss"] is held and held.item() == 3.5
     with pytest.raises(GraphCaptureError, match="epsilon"):
         add_metrics_(sums, {"epsilon": 0.5})
+
+
+@pytest.mark.parametrize("cuda_graphs", [False, True])
+def test_a_loop_runs_its_body_eagerly_or_as_replays(cuda_graphs, monkeypatch):
+    """The one runner of every loop body, on a fake body.  Without graphs
+    ``run(n)`` calls the body ``n`` times and records nothing (no counts,
+    no nodes, no graph), and its sums take a host value.  With graphs
+    (torch.cuda's stream and graph calls faked on the CPU, a replay calling
+    the body) it warms up ``WARMUP`` times, captures once, replays the
+    rest and counts each, and a host metric raises.  ``run(0)`` does
+    nothing; ``bound_loop`` keeps a loop for the same objects and makes a
+    new one for others."""
+    calls = []
+
+    def step(loop):
+        calls.append(loop)
+        loop.add_metrics({"loss": torch.tensor(2.0)})
+
+    class FakeGraph:
+        def __init__(self, keep_graph=False):
+            pass
+
+        def register_generator_state(self, gen):
+            pass
+
+        def instantiate(self):
+            pass
+
+        def replay(self):
+            step(loop)
+
+    class FakeStream:
+        def wait_stream(self, other):
+            pass
+
+    if cuda_graphs:
+        monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+        monkeypatch.setattr(torch.cuda, "current_stream", FakeStream)
+        monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+        monkeypatch.setattr(torch.cuda, "graph",
+                            lambda g, stream=None: contextlib.nullcontext())
+        monkeypatch.setattr(graphs, "kernel_nodes", lambda g: 7)
+    monkeypatch.setattr(graphs, "counts", collections.Counter())
+    monkeypatch.setattr(graphs, "nodes", {})
+    name, a, b, gen = "fake loop", object(), object(), torch.Generator()
+    cache = {}
+    loop = bound_loop(cache, name, (a, b), step, [gen], cuda_graphs, updates=1)
+    assert bound_loop(cache, name, (a, b), step, [gen], cuda_graphs) is loop
+    loop.run(0)
+    assert not calls and not loop.sums and not graphs.counts
+
+    loop.run(5)
+    loop.run(2)
+    if cuda_graphs:
+        # 3 warm-ups, the capture's one call, 2 + 2 replays
+        assert len(calls) == graphs.WARMUP + 1 + 4
+        assert dict(graphs.counts) == {(name, "warmups"): 3, (name, "captures"): 1,
+                                       (name, "replays"): 4}
+        assert graphs.nodes == {name: (7, 1)} and loop.graph is not None
+        assert loop.sums["loss"].item() == 4.0  # zeroed by the second run
+    else:
+        assert len(calls) == 7 and calls[0] is loop
+        assert not graphs.counts and not graphs.nodes and loop.graph is None
+        assert loop.sums["loss"].item() == 4.0
+    other = bound_loop(cache, name, (a, object()), step, [gen], cuda_graphs)
+    assert other is not loop and cache[name] is other
+
+    host = bound_loop(cache, "host metric", (a,),
+                      lambda lp: lp.add_metrics({"epsilon": 0.25}), [gen],
+                      cuda_graphs)
+    if cuda_graphs:
+        with pytest.raises(GraphCaptureError, match="epsilon"):
+            host.run(1)
+    else:
+        host.run(3)
+        assert host.sums == {"epsilon": 0.75}
 
 
 def test_counted_wrappers_count_captures_apart():
