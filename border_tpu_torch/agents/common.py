@@ -17,6 +17,7 @@ from torch import nn
 from border_tpu_torch.envs.pixel import true_div
 from border_tpu_torch.errors import ConfigError
 from border_tpu_torch.models.mlp import EnsembleMLP
+from border_tpu_torch.ops.adam import KernelAdam, KernelAdamW
 from border_tpu_torch.utils import collectives
 from border_tpu_torch.utils.counters import Count
 
@@ -218,27 +219,30 @@ def make_optimizer(
     ``lr`` may be a schedule; the optimizer then starts at ``lr(0)`` and
     :func:`minimize` sets each step's rate.
 
-    Over parameters on a CUDA device, Adam and AdamW are built with
-    ``capturable=True`` and a float32 rate tensor: their step count, bias
-    corrections and rate stay on the device, so a CUDA graph can replay the
-    step.  The eager path on the card uses the same optimizer, so eager and
-    replayed updates are the same program."""
+    Over parameters on a CUDA device, Adam and AdamW are
+    :class:`~border_tpu_torch.ops.adam.KernelAdam` and ``KernelAdamW``:
+    torch's optimizers with ``capturable=True`` and a float32 rate tensor
+    (their step count, bias corrections and rate stay on the device, so a
+    CUDA graph can replay the step), each step one launch of the
+    hand-written kernel ``csrc/adam.cu``, bit for bit torch's step.  The
+    eager path on the card uses the same optimizer, so eager and replayed
+    updates are the same program."""
     lr = lr_at(lr, 0)
     betas = (kw.get("b1", 0.9), kw.get("b2", 0.999))
     eps = kw.get("eps", 1e-8)
 
-    def adam(cls, params, **extra):
+    def adam(cls, kernel_cls, params, **extra):
         params = list(params)
         dev = params[0].device if params else torch.device("cpu")
         if dev.type != "cuda":
             return cls(params, lr=lr, betas=betas, eps=eps, **extra)
-        return cls(params, lr=torch.tensor(lr, dtype=torch.float32, device=dev),
-                   betas=betas, eps=eps, capturable=True, **extra)
+        return kernel_cls(params, lr=torch.tensor(lr, dtype=torch.float32, device=dev),
+                          betas=betas, eps=eps, capturable=True, **extra)
 
     if name == "adam":
-        return lambda p: adam(torch.optim.Adam, p)
+        return lambda p: adam(torch.optim.Adam, KernelAdam, p)
     if name == "adamw":
-        return lambda p: adam(torch.optim.AdamW, p,
+        return lambda p: adam(torch.optim.AdamW, KernelAdamW, p,
                               weight_decay=kw.get("weight_decay", 1e-4))
     if name == "sgd":
         return lambda p: torch.optim.SGD(p, lr=lr)

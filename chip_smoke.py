@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each (any failure exits non-zero with no result line):
 
 1. the card's name and power limit, as nvidia-smi gives them;
-2. the CUDA kernels border_tpu_torch/csrc/frame_gather.cu and sum_tree.cu
-   are built with nvcc for sm_90a and, at the same time, the C++ host envs
+2. the CUDA kernels border_tpu_torch/csrc/frame_gather.cu, sum_tree.cu and
+   adam.cu are built with nvcc for sm_90a and, at the same time, the C++ host envs
    cpp/envpool.cpp with the host compiler (g++, or $CXX) and
    cpp/Makefile's flags;
 3. each kernel against its plain PyTorch version on the card, bitwise: the
@@ -38,12 +38,17 @@ Phases, one line each (any failure exits non-zero with no result line):
    a priority write of 512 with duplicate indices, a descent of 512), and
    each of the four timed as a CUDA graph of SUM_TREE_REPS calls (the
    trainer replays them so), beside a descent of one lane (the chain of
-   20 dependent levels alone) and the bytes over 3.35 TB/s;
+   20 dependent levels alone) and the bytes over 3.35 TB/s; then the Adam
+   kernel (csrc/adam.cu) against torch's capturable Adam, bitwise, over
+   DQN's, IQN's and SAC's parameter lists (three eager steps, three graph
+   replays), each timed as a CUDA graph of ADAM_REPS steps beside the
+   bytes over 3.35 TB/s and torch's step timed the same way;
 6. the uniform path: Trainer.train() on Pong at the bench.py config (1024
    envs, 32 steps a chunk, batch 512, 8 gradient samples per transition,
    bf16 AtariCNN), until two update chunks of 512 updates have run, the
    chunk's env steps and updates as replays of captured CUDA graphs; the
-   gather's launch count (one a replay) must equal the number of updates;
+   gather's and the Adam kernel's launch counts (one a replay) must each
+   equal the number of updates;
    then the same run with the eager chunk (cuda_graphs=False), which must
    end bitwise equal (agent state, replay state, every chunk's loss);
 7. where a chunk's time goes, for the graphed chunk and the eager one in
@@ -230,7 +235,9 @@ Phases, one line each (any failure exits non-zero with no result line):
     ShardedAsyncTrainer), its five lines; the ranks' gather launches count
     in the kernels line.
 
-Then a ``{"kernels": [...]}`` line, and last
+Then a ``{"kernels": [...]}`` line (the adam_step entry's ``launches``: the
+Adam kernel launches of phases 6-29 in this process, each phase's counted
+across its run), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -256,6 +263,10 @@ BATCH, STEPS_PER_CHUNK, OPT_INTERVAL = 512, 32, 64
 UPDATE_CHUNKS = 2
 TIMED_LAUNCHES = 60
 SUM_TREE_LEAVES, SUM_TREE_REPS = 2**20, 20  # the dqn-pong.per cell's tree
+# the Adam kernel's timing: a captured graph of ADAM_REPS steps that cycle
+# over ADAM_COPIES copies of a state (DQN's and IQN's copies, 4 x 47-63 MB,
+# so each step reads its state from device memory, not the 50 MB L2)
+ADAM_REPS, ADAM_COPIES = 20, 4
 # the prioritized path (the pong_per learning-gate config)
 PER_CAPACITY, EVAL_EPISODES, EVAL_MAX_STEPS = 512, 10, 200
 SLICE_GROUP = 64  # the JAX buffer's default
@@ -372,11 +383,12 @@ def main(only=None) -> None:
                                  text=True, timeout=60).stdout.splitlines()[0]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         futures = {n: pool.submit(timed_build, n)
-                   for n in ("frame_gather", "sum_tree", "envpool")}
+                   for n in ("frame_gather", "sum_tree", "adam", "envpool")}
         built = {n: f.result() for n, f in futures.items()}
     print(f"build: frame_gather.cu with nvcc for sm_90a in "
           f"{built['frame_gather']:.2f} s, sum_tree.cu in "
-          f"{built['sum_tree']:.2f} s; cpp/envpool.cpp with {cxx} "
+          f"{built['sum_tree']:.2f} s, adam.cu in {built['adam']:.2f} s; "
+          f"cpp/envpool.cpp with {cxx} "
           f"({cxx_version}) and cpp/Makefile's flags {' '.join(_build.CXX_FLAGS)} "
           f"in {built['envpool']:.2f} s, into {_build.library_path('envpool')}",
           flush=True)
@@ -480,15 +492,19 @@ def main(only=None) -> None:
     actor_critic_checks(torch, dev)
     sum_tree_check(torch, dev)
     tree_kernels = sum_tree_kernels(torch, dev)
+    adam_entries = adam_kernels(torch, dev)
+    from border_tpu_torch.ops import adam_step
 
-    phase_s = {}
+    phase_s, adam_launches = {}, {}
 
     def timed(label, fn, *args, skipped=0, **kw):
         if only is not None and label.split()[0] not in only:
             return skipped
         t = time.perf_counter()
+        n0 = adam_step.launches  # this process's Adam launches in the phase
         out = fn(*args, **kw)
         phase_s[label] = round(time.perf_counter() - t, 2)
+        adam_launches[label] = adam_step.launches - n0
         return out
 
     # -- 6-14. the fused training paths --------------------------------------------
@@ -541,7 +557,10 @@ def main(only=None) -> None:
         # the third: [256, 5] indices (the Seaquest path's batch)
         "batch_256": {k: timings[SEAQUEST_BATCH, STACK + 1][k] for k in
                       ("ms", "plain_ms", "bound_ms", "library_ms")},
-    }, *tree_kernels]
+    }, *tree_kernels, *adam_entries]
+    adam_entries[0]["launches"] = sum(adam_launches.values())
+    if only is None and adam_entries[0]["launches"] == 0:
+        fail("no phase launched the Adam kernel")
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     if only is not None:
         print(f"partial run of phases 1-5 and {sorted(only)} passed in "
@@ -928,6 +947,150 @@ def sum_tree_kernels(torch, dev) -> list:
              "descent_1": times["descent_1"]}]
 
 
+def _adam_lists(torch, dev, kind: str) -> list:
+    """The optimizers' parameter lists of the benchmark's agents, one list
+    an optimizer: DQN's (the Nature torso and head), IQN's, and SAC's
+    critics, actor and one-element log alpha at 2 x 256."""
+    import functools
+
+    from border_tpu_torch.agents import DQN, IQN, SAC, DQNConfig, IQNConfig, SACConfig
+    from border_tpu_torch.core import spaces
+    from border_tpu_torch.models import AtariCNN
+
+    pixels = spaces.Box(0, 255, (84, 84, 4), torch.uint8)
+    if kind == "dqn":
+        st = DQN(DQNConfig(model=lambda n: AtariCNN(n))).init(
+            0, pixels, spaces.Discrete(6), device=dev)
+        return [list(st.params.parameters())]
+    if kind == "iqn":
+        st = IQN(IQNConfig(psi_fn=functools.partial(AtariCNN, out_dim=0,
+                                                    skip_linear=True),
+                           feature_dim=512, n_cos=64, hidden=(512,))).init(
+            0, pixels, spaces.Discrete(6), device=dev)
+        return [list(st.params.parameters())]
+    st = SAC(SACConfig(actor_hidden=(256, 256), critic_hidden=(256, 256))).init(
+        0, spaces.Box(-1.0, 1.0, (3,), torch.float32),
+        spaces.Box(-2.0, 2.0, (1,), torch.float32), device=dev)
+    return [list(st.critic_params.parameters()),
+            list(st.actor_params.parameters()), [st.log_alpha]]
+
+
+def adam_kernels(torch, dev) -> list:
+    """The Adam kernel's optimizer against torch's capturable Adam at
+    DQN's, IQN's and SAC's parameter lists (SAC: its three optimizers, an
+    update's three steps) on the same gradients: parameters, moments and
+    step counts bitwise after three eager steps and three replays of a
+    captured step.  Then each timed inside a captured graph of ADAM_REPS
+    steps cycling over ADAM_COPIES copies, beside the least time its bytes
+    take (28 B an element: p, g, m, v read, p, m, v written, over 3.35
+    TB/s) and torch's capturable multi-tensor step timed the same way
+    (library_ms).  SAC's three steps are bound by launch latency, not
+    bytes.  Returns the result line's entry."""
+    from border_tpu_torch.ops.adam import KernelAdam, adam_step
+
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def copies(lists, cls, n):
+        out = []
+        for _ in range(n):
+            params = [[p.detach().clone().requires_grad_() for p in ps]
+                      for ps in lists]
+            for p in (p for ps in params for p in ps):
+                p.grad = torch.zeros_like(p)
+            out.append((params, [cls(ps, lr=torch.tensor(1e-4, device=dev),
+                                     capturable=True) for ps in params]))
+        return out
+
+    def new_grads(sides):
+        flat = [[p for ps in params for p in ps] for params, _ in sides]
+        for ps in zip(*flat):
+            x = torch.randn(ps[0].shape, generator=g, device=dev) * 10.0 ** (
+                torch.randint(-9, 2, ps[0].shape, generator=g, device=dev))
+            for p in ps:
+                p.grad.copy_(x)
+
+    def step(side):
+        for opt in side[1]:
+            opt.step()
+
+    def graph_ms(sides) -> float:
+        """Device ms a step (of every optimizer of a copy) inside a graph
+        of ADAM_REPS steps over the copies (median of five replays)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for r in range(ADAM_REPS):
+                step(sides[r % len(sides)])
+        graph.replay()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda._sleep(50_000_000)
+        ev[0].record()
+        for e in ev[1:]:
+            graph.replay()
+            e.record()
+        torch.cuda.synchronize()
+        return statistics.median(
+            a.elapsed_time(b) for a, b in zip(ev, ev[1:])) / ADAM_REPS
+
+    out = {}
+    for kind in ("dqn", "iqn", "sac"):
+        lists = _adam_lists(torch, dev, kind)
+        elements = sum(p.numel() for ps in lists for p in ps)
+        kern, ref = copies(lists, KernelAdam, 1)[0], copies(lists, torch.optim.Adam, 1)[0]
+        n0 = adam_step.launches
+        for i in range(3):
+            new_grads([kern, ref])
+            step(kern)
+            step(ref)
+        if adam_step.launches != n0 + 3 * len(lists):
+            fail(f"adam {kind}: {adam_step.launches - n0} launches for "
+                 f"{3 * len(lists)} steps")
+        graphs = []
+        for side in (kern, ref):
+            graphs.append(torch.cuda.CUDAGraph())
+            with torch.cuda.graph(graphs[-1]):
+                step(side)
+        for i in range(3):
+            new_grads([kern, ref])
+            for graph in graphs:
+                graph.replay()
+        torch.cuda.synchronize()
+        for (ps_k, ps_r), (ok, orf) in zip(zip(kern[0], ref[0]), zip(kern[1], ref[1])):
+            for pk, pr in zip(ps_k, ps_r):
+                same = torch.equal(pk, pr) and all(
+                    torch.equal(ok.state[pk][k], orf.state[pr][k])
+                    for k in ("step", "exp_avg", "exp_avg_sq"))
+                if not same:
+                    fail(f"adam {kind}: the kernel's step differs from torch's "
+                         f"capturable Adam at a {tuple(pk.shape)} parameter")
+        del graphs, kern, ref
+        timing = {}
+        for label, cls in (("ms", KernelAdam), ("library_ms", torch.optim.Adam)):
+            sides = copies(lists, cls, ADAM_COPIES)
+            new_grads(sides)
+            for side in sides:
+                step(side)  # each copy's state made
+            timing[label] = graph_ms(sides)
+            del sides
+        nbytes = 28 * elements
+        timing["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+        timing["bound_by"] = "bytes" if kind != "sac" else (
+            "launch latency (bytes: %.5f ms)" % timing["bound_ms"])
+        out[kind] = {"elements": elements, "steps": len(lists), **timing}
+        print(f"timing adam {kind}, {len(lists)} step(s) over {elements} "
+              f"elements (graph of {ADAM_REPS} over {ADAM_COPIES} copies): "
+              + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                            for k, v in out[kind].items()})
+              + f" ({nbytes} B over 3.35 TB/s)", flush=True)
+        torch.cuda.empty_cache()
+    print("kernel check: the Adam kernel bitwise equal to torch's capturable "
+          "Adam over DQN's, IQN's and SAC's parameters (3 eager steps, 3 "
+          "graph replays)", flush=True)
+    return [{"name": "adam_step", "route": "cuda",
+             "source": "border_tpu_torch/csrc/adam.cu", "replaces": None,
+             "match": True, **out}]
+
+
 def actor_critic_checks(torch, dev) -> None:
     """Reacher steps, and float32 SAC, AWAC and IQL updates at their gate
     configs' widths with the same injected draws, on the card and on the
@@ -1021,7 +1184,7 @@ def main_path(torch, dev):
     from border_tpu_torch.agents import DQN, DQNConfig
     from border_tpu_torch.envs import make
     from border_tpu_torch.models import AtariCNN
-    from border_tpu_torch.ops import frame_gather
+    from border_tpu_torch.ops import adam_step, frame_gather
     from border_tpu_torch.replay import FrameReplayBuffer
     from border_tpu_torch.train import Trainer, TrainerConfig
 
@@ -1046,11 +1209,13 @@ def main_path(torch, dev):
         0, tr.vec.observation_space, tr.vec.action_space).params.parameters()]
 
     torch.cuda.reset_peak_memory_stats()
-    # the counts are set to 0 just before the main path and read just after
+    # the counts are read just before the main path and just after
     frame_gather.gather_frames.launches = 0
+    adam0 = adam_step.launches
     r = tr.train(seed=0)
     torch.cuda.synchronize()
     launches = frame_gather.gather_frames.launches
+    adam_launches = adam_step.launches - adam0
 
     chunks = [c for c in rec.chunks if "opt_steps_per_sec" in c]
     losses = [c["loss"] for c in chunks]
@@ -1065,6 +1230,9 @@ def main_path(torch, dev):
         fail("non-finite parameters")
     if launches != r.opt_steps:
         fail(f"frame_gather launched {launches} times for {r.opt_steps} updates")
+    if adam_launches != r.opt_steps:  # one Adam step an update
+        fail(f"the Adam kernel launched {adam_launches} times for "
+             f"{r.opt_steps} updates")
     if r.buffer_state.total != (UPDATE_CHUNKS + 1) * STEPS_PER_CHUNK:
         fail(f"buffer holds {r.buffer_state.total} pushes")
     obs = r.buffer_state.frames[:4, 0, :, :, None].expand(-1, -1, -1, 4)
@@ -1078,9 +1246,13 @@ def main_path(torch, dev):
     rec_e = _chunk_recorder()
     tr_e = Trainer(env, agent, buf, cfg, recorder=rec_e, cuda_graphs=False)
     frame_gather.gather_frames.launches = 0
+    adam0 = adam_step.launches
     r_e = tr_e.train(seed=0)
     torch.cuda.synchronize()
     launches_e = frame_gather.gather_frames.launches
+    if adam_step.launches - adam0 != adam_launches:
+        fail(f"the eager run launched the Adam kernel "
+             f"{adam_step.launches - adam0} times, the graphed {adam_launches}")
     chunks_e = [c for c in rec_e.chunks if "opt_steps_per_sec" in c]
     diff = _state_diff(torch, {"agent": r.agent_state, "replay": r.buffer_state},
                        {"agent": r_e.agent_state, "replay": r_e.buffer_state})
@@ -1096,6 +1268,7 @@ def main_path(torch, dev):
     result = {
         "env_steps": r.env_steps, "updates": r.opt_steps,
         "update_chunks": UPDATE_CHUNKS, "gather_launches": launches,
+        "adam_launches": adam_launches,
         "final_loss": losses[-1],
         "env_steps_per_s_chunks": eps, "updates_per_s_chunks": ups,
         "warmup_chunk_env_steps_per_s": rec.chunks[0]["samples_per_sec"],
@@ -1111,8 +1284,9 @@ def main_path(torch, dev):
           f"{ups[-1]:.2f} (last chunk; eager chunk "
           f"{chunks_e[-1]['samples_per_sec']:.1f} and "
           f"{chunks_e[-1]['opt_steps_per_sec']:.2f}, the same states bitwise); "
-          f"final loss {losses[-1]:.6g}; frame_gather launches {launches} "
-          f"= updates {r.opt_steps}", flush=True)
+          f"final loss {losses[-1]:.6g}; frame_gather and Adam kernel "
+          f"launches {launches} and {adam_launches} = updates {r.opt_steps}",
+          flush=True)
     print("uniform path numbers: " + json.dumps(result), flush=True)
     return launches + launches_e, tr, r
 

@@ -1,5 +1,6 @@
 """Tests that need the card: the port's CUDA kernels against their plain
-PyTorch versions, bitwise; the bf16 Atari torso's kernels (no float32
+PyTorch versions, bitwise, and the Adam kernel's optimizers against torch's
+capturable Adam and AdamW, bitwise; the bf16 Atari torso's kernels (no float32
 fallback, no layout transposes); the sum tree, the games, the classic-control
 envs and the Reacher, and the DQN, IQN, SAC, AWAC and IQL updates on the
 card against the CPU path; a small prioritized train-checkpoint-resume on
@@ -283,6 +284,356 @@ def test_sum_tree_kernels_match_plain_version_on_card(case, cap):
     assert sum_tree_update.launches == n0 + sum(
         i.numel() > 0 for i, _ in updates)
     assert sum_tree_sample.launches == s0 + 2
+
+
+def _adam_param_lists(kind, dev):
+    """The optimizers' parameter lists of the benchmark's agents on ``dev``,
+    one list an optimizer: DQN's Nature torso and head (1,687,206
+    elements), IQN's (2,245,798), and SAC's critics (the stacked ``[2, …]``
+    ensemble), actor and one-element log α at 2 × 256."""
+    import functools
+
+    from border_tpu_torch.agents import DQN, IQN, SAC, DQNConfig, IQNConfig, SACConfig
+    from border_tpu_torch.core import spaces
+    from border_tpu_torch.models import AtariCNN
+
+    pixels = spaces.Box(0, 255, (84, 84, 4), torch.uint8)
+    if kind == "dqn":
+        st = DQN(DQNConfig(model=lambda n: AtariCNN(n))).init(
+            0, pixels, spaces.Discrete(6), device=dev)
+        return [list(st.params.parameters())]
+    if kind == "iqn":
+        st = IQN(IQNConfig(psi_fn=functools.partial(AtariCNN, out_dim=0,
+                                                    skip_linear=True),
+                           feature_dim=512, n_cos=64, hidden=(512,))).init(
+            0, pixels, spaces.Discrete(6), device=dev)
+        return [list(st.params.parameters())]
+    st = SAC(SACConfig(actor_hidden=(256, 256), critic_hidden=(256, 256))).init(
+        0, spaces.Box(-1.0, 1.0, (3,), torch.float32),
+        spaces.Box(-2.0, 2.0, (1,), torch.float32), device=dev)
+    return [list(st.critic_params.parameters()),
+            list(st.actor_params.parameters()), [st.log_alpha]]
+
+
+def _adam_sides(lists, name, dev):
+    """Two copies of ``lists``, each parameter with a zero gradient:
+    ``"torch"`` under torch's capturable Adam or AdamW, ``"kernel"`` under
+    the kernel's; one optimizer a list."""
+    from border_tpu_torch.ops.adam import KernelAdam, KernelAdamW
+
+    classes = {"adam": (torch.optim.Adam, KernelAdam),
+               "adamw": (torch.optim.AdamW, KernelAdamW)}[name]
+    kw = dict(weight_decay=1e-4) if name == "adamw" else {}
+    sides = {}
+    for side, cls in zip(("torch", "kernel"), classes):
+        params = [[p.detach().clone().requires_grad_() for p in ps] for ps in lists]
+        for p in (p for ps in params for p in ps):
+            p.grad = torch.zeros_like(p)
+        sides[side] = (params, [cls(ps, lr=torch.tensor(3e-4, device=dev),
+                                    capturable=True, **kw) for ps in params])
+    return sides
+
+
+def _new_grads(sides, g):
+    """The same gradients into both sides: scales 1e-9 to 10 (so eps, the
+    moments and the bias corrections all show) and about 1 % exact zeros."""
+    dev = g.device
+    for pt, pk in zip(*([p for ps in sides[s][0] for p in ps] for s in sides)):
+        x = torch.randn(pt.shape, generator=g, device=dev) * 10.0 ** torch.randint(
+            -9, 2, pt.shape, generator=g, device=dev)
+        x[torch.rand(pt.shape, generator=g, device=dev) < 0.01] = 0.0
+        pt.grad.copy_(x)
+        pk.grad.copy_(x)
+
+
+def _assert_same_adam(sides, when):
+    (params_t, opts_t), (params_k, opts_k) = sides["torch"], sides["kernel"]
+    for ps_t, ps_k, ot, ok in zip(params_t, params_k, opts_t, opts_k):
+        for i, (pt, pk) in enumerate(zip(ps_t, ps_k)):
+            assert torch.equal(pt, pk), f"parameter {i} {when}"
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(ot.state[pt][key], ok.state[pk][key]), (
+                    f"{key} of parameter {i} {when}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graphed", [False, True])
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+@pytest.mark.parametrize("kind", ["dqn", "iqn", "sac"])
+def test_adam_kernel_is_torchs_capturable_step_bitwise(kind, name, graphed):
+    """The kernel's optimizer against torch's capturable Adam / AdamW on the
+    same gradients, over the benchmark's agents' parameter lists: p,
+    ``exp_avg``, ``exp_avg_sq`` and ``step`` bitwise after the first
+    (eager) step and after 100 more, eager or as replays of a captured
+    graph of each side's steps, the rate changed through ``set_lr``
+    halfway; one launch a list a step."""
+    from border_tpu_torch.agents.common import set_lr
+    from border_tpu_torch.ops import adam_step
+
+    dev = _cuda()
+    lists = _adam_param_lists(kind, dev)
+    sides = _adam_sides(lists, name, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def steps(side):
+        for opt in sides[side][1]:
+            opt.step()
+
+    n0, c0 = adam_step.launches, adam_step.captured
+    _new_grads(sides, g)
+    for side in sides:
+        steps(side)
+    torch.cuda.synchronize()
+    _assert_same_adam(sides, "after the first step")
+    assert adam_step.launches == n0 + len(lists)
+    run = steps
+    if graphed:
+        graphs = {}
+        for side in sides:
+            graphs[side] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[side]):
+                steps(side)
+        run = lambda side: graphs[side].replay()  # noqa: E731
+        assert adam_step.captured == c0 + len(lists)
+    for i in range(100):
+        if i == 50:
+            for opt in (o for s in sides.values() for o in s[1]):
+                set_lr(opt, 1e-3)
+        _new_grads(sides, g)
+        for side in sides:
+            run(side)
+    torch.cuda.synchronize()
+    _assert_same_adam(sides, "after 100 more steps")
+    assert adam_step.launches == n0 + len(lists) * (1 if graphed else 101)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_state_dict_resume_continues_bitwise():
+    """SAC's three optimizers: a ``state_dict`` saved after 5 steps and
+    loaded into fresh kernel optimizers (and into torch's capturable Adam)
+    over the parameters as they were then: 5 more steps on the same
+    gradients end bitwise where the uninterrupted run ends."""
+    import copy
+
+    from border_tpu_torch.ops.adam import KernelAdam
+
+    dev = _cuda()
+    lists = _adam_param_lists("sac", dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    grads = [[[torch.randn(p.shape, generator=g, device=dev) for p in ps]
+              for ps in lists] for _ in range(10)]
+
+    def run(cls, params, opts, k):
+        for step_grads in grads[k:k + 5]:
+            for ps, gs, opt in zip(params, step_grads, opts):
+                for p, x in zip(ps, gs):
+                    p.grad = x.clone()
+                opt.step()
+
+    def fresh(cls, params):
+        return [cls(ps, lr=torch.tensor(3e-4, device=dev), capturable=True)
+                for ps in params]
+
+    params = [[p.detach().clone().requires_grad_() for p in ps] for ps in lists]
+    opts = fresh(KernelAdam, params)
+    run(KernelAdam, params, opts, 0)
+    saved = [copy.deepcopy(o.state_dict()) for o in opts]
+    at5 = [[p.detach().clone() for p in ps] for ps in params]
+    run(KernelAdam, params, opts, 5)
+    for cls in (KernelAdam, torch.optim.Adam):
+        resumed = [[p.clone().requires_grad_() for p in ps] for ps in at5]
+        ropts = fresh(cls, resumed)
+        for o, sd in zip(ropts, saved):
+            o.load_state_dict(copy.deepcopy(sd))
+        run(cls, resumed, ropts, 5)
+        torch.cuda.synchronize()
+        for ps, rs, o, ro in zip(params, resumed, opts, ropts):
+            for p, r in zip(ps, rs):
+                assert torch.equal(p, r), cls.__name__
+                for key in ("step", "exp_avg", "exp_avg_sq"):
+                    assert torch.equal(o.state[p][key], ro.state[r][key]), key
+
+
+@pytest.mark.cuda
+def test_adam_kernel_optimizer_deep_copy_steps_on_its_own():
+    """A deep copy of parameters and kernel optimizer together (as a copy
+    of an agent's state makes it) gets its own done-counter and steps on
+    bitwise beside the original on the same gradients."""
+    import copy
+
+    from border_tpu_torch.ops.adam import KernelAdamW
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(17)
+    params = [p.detach().clone().requires_grad_()
+              for p in _adam_param_lists("sac", dev)[0]]
+    opt = KernelAdamW(params, lr=torch.tensor(3e-4, device=dev),
+                      weight_decay=1e-4, capturable=True)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=g, device=dev)
+    opt.step()
+    params2, opt2 = copy.deepcopy((params, opt))
+    assert opt2._done[0].data_ptr() != opt._done[0].data_ptr()
+    for _ in range(5):
+        for p, q in zip(params, params2):
+            p.grad = torch.randn(p.shape, generator=g, device=dev)
+            q.grad = p.grad.clone()
+        opt.step()
+        opt2.step()
+    torch.cuda.synchronize()
+    for p, q in zip(params, params2):
+        assert torch.equal(p, q)
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt.state[p][key], opt2.state[q][key]), key
+
+
+@pytest.mark.cuda
+def test_adam_kernel_long_lists_odd_sizes_and_unaligned_tensors():
+    """130 tensors (three launches a step), of 0 to 1,027 elements, half of
+    them views 4 bytes past an allocation's start (no 16-byte vectors): three
+    AdamW steps of ``adam_step`` bitwise torch's capturable AdamW."""
+    from border_tpu_torch.ops import adam_step
+    from border_tpu_torch.ops.adam import scratch
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    sizes = [int(n) for n in torch.randint(0, 1028, (130,), generator=g, device=dev)]
+    sizes[:3] = [0, 1, 4]
+    flat = torch.randn(sum(sizes) + 130, generator=g, device=dev)
+    sides = []
+    for _ in range(2):
+        params, offset = [], 1
+        for i, n in enumerate(sizes):
+            if i % 2:
+                params.append(flat[offset:offset + n].clone())
+            else:  # a view at an odd offset
+                params.append(torch.empty(n + 1, device=dev)[1:].copy_(
+                    flat[offset:offset + n]))
+            offset += n + 1
+        sides.append(params)
+    kern, plain = sides
+    m = [torch.zeros_like(p) for p in kern]
+    v = [torch.zeros_like(p) for p in kern]
+    t = [torch.zeros((), device=dev) for _ in kern]
+    lr = torch.tensor(1e-3, device=dev)
+    done = scratch(dev)
+    ref = torch.optim.AdamW(plain, lr=lr.clone(), weight_decay=1e-4,
+                            capturable=True, foreach=True)
+    n0 = adam_step.launches
+    for _ in range(3):
+        grads = [torch.randn(n, generator=g, device=dev) for n in sizes]
+        adam_step(kern, grads, m, v, t, lr=lr, done=done, weight_decay=1e-4,
+                  decoupled=True)
+        for p, x in zip(plain, grads):
+            p.grad = x.clone()
+        ref.step()
+    torch.cuda.synchronize()
+    for i, p in enumerate(plain):
+        state = ref.state[p]
+        assert torch.equal(kern[i], p), i
+        assert torch.equal(m[i], state["exp_avg"]), i
+        assert torch.equal(v[i], state["exp_avg_sq"]), i
+        assert torch.equal(t[i], state["step"]), i
+    assert adam_step.launches == n0 + 3 * 3
+
+
+@pytest.mark.cuda
+def test_adam_kernel_steps_on_two_streams_at_once():
+    """Two kernel optimizers stepping on two streams with nothing ordering
+    their launches (DQN's parameters, so that a launch spans the card, and
+    SAC's critics): each group has its own done-counter, so after 20 steps
+    each side is bitwise torch's capturable Adam run alone."""
+    from border_tpu_torch.ops.adam import KernelAdam
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(13)
+    lists = _adam_param_lists("dqn", dev) + _adam_param_lists("sac", dev)[:1]
+    sides = {}
+    for cls in (KernelAdam, torch.optim.Adam):
+        params = [[p.detach().clone().requires_grad_() for p in ps] for ps in lists]
+        sides[cls] = (params, [cls(ps, lr=torch.tensor(3e-4, device=dev),
+                                   capturable=True) for ps in params])
+    for ps_k, ps_t in zip(sides[KernelAdam][0], sides[torch.optim.Adam][0]):
+        for pk, pt in zip(ps_k, ps_t):
+            x = torch.randn(pk.shape, generator=g, device=dev)
+            pk.grad, pt.grad = x, x.clone()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=dev) for _ in lists]
+    for _ in range(20):
+        for stream, opt in zip(streams, sides[KernelAdam][1]):
+            with torch.cuda.stream(stream):
+                opt.step()
+    for _ in range(20):
+        for opt in sides[torch.optim.Adam][1]:
+            opt.step()
+    torch.cuda.synchronize()
+    (params_k, opts_k), (params_t, opts_t) = sides.values()
+    for ps_k, ps_t, ok, ot in zip(params_k, params_t, opts_k, opts_t):
+        for pk, pt in zip(ps_k, ps_t):
+            assert torch.equal(pk, pt)
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(ok.state[pk][key], ot.state[pt][key]), key
+
+
+@pytest.mark.cuda
+def test_adam_kernel_refuses_what_it_does_not_take():
+    """The optimizer and the wrapper raise, on the card, on every input the
+    kernel does not take; nothing falls back to torch's step.  A refused
+    group added later leaves the optimizer as it was."""
+    from border_tpu_torch.ops import adam_step
+    from border_tpu_torch.ops.adam import KernelAdam, KernelAdamW, scratch
+
+    dev = _cuda()
+    lr = torch.tensor(1e-3, device=dev)
+
+    def param(**kw):
+        p = torch.zeros(8, device=dev, **kw).requires_grad_()
+        p.grad = torch.ones_like(p)
+        return p
+
+    for kw, match in ((dict(amsgrad=True), "amsgrad"),
+                      (dict(maximize=True), "maximize"),
+                      (dict(weight_decay=1e-2), "decoupled"),
+                      (dict(capturable=False), "capturable")):
+        with pytest.raises(ValueError, match=match):
+            KernelAdam([param()], **{"lr": lr, "capturable": True, **kw})
+    with pytest.raises(ValueError, match="rate"):
+        KernelAdamW([param()], lr=1e-3, capturable=True)
+    with pytest.raises(TypeError, match="float32"):
+        KernelAdam([param(dtype=torch.bfloat16)], lr=lr, capturable=True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        KernelAdam([param(), torch.zeros(8, requires_grad=True)], lr=lr,
+                   capturable=True)
+    opt = KernelAdam([param()], lr=lr, capturable=True)
+    with pytest.raises(TypeError, match="float32"):
+        opt.add_param_group({"params": [param(dtype=torch.float16)]})
+    assert len(opt.param_groups) == 1
+    opt.step()
+    opt.param_groups[0]["amsgrad"] = True
+    with pytest.raises(ValueError, match="amsgrad"):
+        opt.step()
+
+    def tensors(n=8, device=dev):
+        return [torch.zeros(n, device=device)]
+
+    one = [torch.zeros((), device=dev)]
+    done = scratch(dev)
+    with pytest.raises(ValueError, match="on cpu"):
+        adam_step(tensors(), tensors(device="cpu"), tensors(), tensors(), one,
+                  lr=lr, done=done)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam_step([torch.zeros(8, 2, device=dev).t()],
+                  [torch.zeros(2, 8, device=dev)] * 1, [torch.zeros(2, 8, device=dev)],
+                  [torch.zeros(2, 8, device=dev)], one, lr=lr, done=done)
+    with pytest.raises(ValueError, match="rate"):
+        adam_step(tensors(), tensors(), tensors(), tensors(), one, lr=lr.cpu(),
+                  done=done)
+    with pytest.raises(ValueError, match="done-counter"):
+        adam_step(tensors(), tensors(), tensors(), tensors(), one, lr=lr,
+                  done=torch.zeros((), device=dev))
+    with pytest.raises(ValueError, match="parameter"):
+        adam_step(tensors(), tensors(7), tensors(), tensors(), one, lr=lr,
+                  done=done)
 
 
 @pytest.mark.cuda
